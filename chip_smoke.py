@@ -12,21 +12,30 @@ Phases, each reported on its own lines:
 2. Build: compiles csrc/propagate.cu with nvcc (into
    uigc_tpu_torch/csrc/build/) and loads it.
 3. Kernel vs plain: the propagate kernel, both forms, against its plain
-   PyTorch version on the card: seeded random layouts (dense and compact,
-   gates mixing PUSH/FULL/SKIP, full and partial dirty lists) and the
-   10M-actor layout of phase 4.  Equality is exact (integer counts in
-   f32).  Times each form at the 10M layout with CUDA events.
+   PyTorch version (propagate_words_torch) on the card: seeded random
+   layouts (dense, and compact with pad tiles; global gates mixing
+   PUSH/FULL/SKIP; full and partial dirty lists), a block-shuffled copy
+   of each (its words must not change), and the 10M-actor layout of
+   phase 4, all-dirty and with mixed gates.  Equality is exact on the
+   int32 hit words.  Times each form on a full-walk sweep at the 10M
+   layout with CUDA events, beside the byte bound of the work the new
+   design does and the bound by the formula of the earlier f32 kernel
+   (one thread per slot).
 4. Main path: a 10M-actor power-law graph (seed 0, half garbage) packed,
    moved to the card and traced through get_trace_fn in push, pull, jump
    and auto; the garbage set must equal the generator's expected set.
+   Then the sparse sweep: both forms timed on the inputs of push sweep
+   SPARSE_SWEEP (a late sweep with few dirty walk groups), and a
+   torch.profiler breakdown of one auto trace.
 5. Incremental and decremental: a 1M-actor graph under a seeded churn
    schedule (inserts, removes, halts, root releases) over 11 wakes, on
    IncrementalCudaLayout.trace_device and DecrementalTracer; marks must
    equal trace_marks_np at every wake, and the repair sweep must have
    run FULL-gated tiles.
 
-Then one JSON line with the kernel table (launches counted on the phase-4
-main path) and, last, {"ok": true, "device": {...}}.  Any failed check
+Then one JSON line with the kernel table (the full-walk times; launches
+counted on the phase-4 main path) and, last,
+{"ok": true, "device": {...}}.  Any failed check
 exits non-zero before that line; there is no CPU path.
 """
 
@@ -48,10 +57,12 @@ from uigc_tpu_torch.utils.platform import require_hopper
 
 F = trace_ops
 #: H100 SXM peaks (NVIDIA data sheet): HBM3 bytes/s, f32 outside the
-#: tensor cores (the kernel's one arithmetic op is an f32 add per hit)
+#: tensor cores (the kernel's one operation per hit is an OR)
 HBM_BYTES_S = 3.35e12
 F32_OPS_S = 67e12
 N_MAIN = 10_000_000
+#: the push sweep (1-based) whose inputs the sparse-sweep timing reads
+SPARSE_SWEEP = 8
 N_CHURN = 1_000_000
 MODES = ("push", "pull", "jump", "auto")
 KERNEL_SOURCE = "uigc_tpu_torch/csrc/propagate.cu"
@@ -125,28 +136,56 @@ def phase_build():
 # --------------------------------------------------------------------- #
 
 
+def form_of(gate):
+    return "propagate_gated" if gate is not None else "propagate"
+
+
 def operands(lay, table, dirty, gate):
-    """propagate's operands for a device layout, a word table and a
-    dirty mask over its walk groups."""
+    """propagate_words' operands for a device layout, a word table, a
+    dirty mask over its walk groups and a global gate (or None); the word
+    plane is made zeroed per call by ``words_call``."""
     d = torch.zeros(dirty.numel() + 1, dtype=torch.int32, device=table.device)
     d[1:] = torch.cumsum(dirty.to(torch.int32), 0)
-    bmeta1, bmeta2, row_pos, emeta = ct.device_args(lay)[:4]
-    kw = dict(out_tiles=lay.get("out_supers", lay["n_super"]),
-              s_rows=lay["s_rows"], sub=lay["sub"], group=lay["group"],
-              gate=gate)
-    return (d, bmeta1, bmeta2, table, row_pos, emeta), kw
+    args = ct.device_args(lay)
+    kw = dict(n_super=lay["n_super"], s_rows=lay["s_rows"], sub=lay["sub"],
+              group=lay["group"], gate=gate,
+              super_ids=args[4] if len(args) > 4 else None)
+    return (d, args[0], args[1], table, args[2], args[3]), kw
+
+
+def words_call(fn, args, kw):
+    return fn(*args, torch.zeros_like(args[3]), **kw)
 
 
 def compare(args, kw, errs, label):
-    got = prop.propagate_cuda(*args, **kw)
+    """Kernel against plain version, exact on int32 words.  The error
+    recorded is the largest |kernel bit - plain bit| over all nodes:
+    0 when the words are equal, 1 otherwise."""
+    got = words_call(prop.propagate_words_cuda, args, kw)
     torch.cuda.synchronize()
-    want = prop.propagate_torch(*args, **kw)
-    err = float((got - want).abs().max()) if got.numel() else 0.0
-    form = "propagate_gated" if kw["gate"] is not None else "propagate"
+    want = words_call(prop.propagate_words_torch, args, kw)
+    err = float(bool((got != want).any()))
+    form = form_of(kw["gate"])
     errs[form] = max(errs[form], err)
     check(torch.equal(got, want), f"{form} differs from its plain version "
-          f"on {label}: max |diff| = {err}")
+          f"on {label}: {int((got != want).sum())} words differ")
     return got
+
+
+def shuffle_blocks(lay, seed):
+    """The same layout blocks in another order: rows and metadata move
+    together, so every slot keeps its row class and its output tile."""
+    gen = torch.Generator(device=lay["bmeta1"].device)
+    gen.manual_seed(seed)
+    perm = torch.randperm(lay["n_blocks"], device=lay["bmeta1"].device,
+                          generator=gen)
+    out = dict(lay)
+    for k in ("bmeta1", "bmeta2"):
+        out[k] = lay[k][perm].contiguous()
+    for k in ("row_pos", "emeta"):
+        out[k] = lay[k].reshape(lay["n_blocks"], -1)[perm].reshape(
+            lay[k].shape).contiguous()
+    return out
 
 
 def random_layout_checks(dev, errs):
@@ -163,23 +202,109 @@ def random_layout_checks(dev, errs):
         prep = ct.prepare_pairs(psrc, pdst, n, n_src=n_src, sub=1, group=1,
                                 compact_supers=kind == "compact",
                                 pad_blocks_pow2=kind == "compact")
+        if kind == "compact":
+            check(prep["out_supers"] > np.unique(prep["super_ids"]).size,
+                  "the compact layout has no pad tile")
         lay = ct.layout_to_device(prep, dev)
+        shuffled = shuffle_blocks(lay, 3)
         n_chunks = prep["r_rows"] // ct.ROWS
         table = torch.randint(-(1 << 31), 1 << 31, (prep["r_rows"], ct.LANE),
                               dtype=torch.int64, device=dev).to(torch.int32)
-        tiles = prep.get("out_supers", prep["n_super"])
         for dirty_kind in ("all", "partial"):
             dirty = (torch.ones(n_chunks, dtype=torch.bool, device=dev)
                      if dirty_kind == "all" else
                      torch.arange(n_chunks, device=dev) % 3 == 1)
-            for gate in (None, torch.randint(0, 3, (tiles,), device=dev,
-                                             dtype=torch.int32)):
-                args, kw = operands(lay, table, dirty, gate)
-                out = compare(args, kw, errs,
-                              f"{kind}/{dirty_kind}/gate={gate is not None}")
-                check(float(out.max()) > 1, "hub destination not summed")
-                cases += 1
-    say(f"[kernel] random layouts: {cases} cases equal to the plain version")
+            mixed = torch.randint(0, 3, (prep["n_super"],), device=dev,
+                                  dtype=torch.int32)
+            mixed[0] = ct.GATE_PUSH  # supertile 0 holds the hub
+            for gate in (None, mixed):
+                label = f"{kind}/{dirty_kind}/gate={gate is not None}"
+                out = compare(*operands(lay, table, dirty, gate), errs, label)
+                check(bool(out.any()), f"no hit at all on {label}")
+                moved = compare(*operands(shuffled, table, dirty, gate), errs,
+                                f"{label}/shuffled blocks")
+                check(torch.equal(moved, out),
+                      f"block order changed the words on {label}")
+                cases += 2
+    say(f"[kernel] random layouts: {cases} cases equal to the plain version "
+        f"(half of them block-shuffled, equal to the unshuffled words)")
+
+
+def sweep_work(lay, table, args, kw):
+    """What one sweep must move, counted from this sweep's inputs: the
+    new design's bytes (row_pos of the walked blocks only, emeta of the
+    live walked slots, the table rows of the walked groups, both block
+    metadata words of every block, the dirty prefix, the gate and the
+    word plane), the earlier f32 kernel's formula (row_pos of every
+    slot, the whole table and a 40 MB f32 plane in place of the words)
+    and the slot hits."""
+    d, bmeta1, bmeta2, _, row_pos, emeta = args
+    gate = kw["gate"]
+    sub, group = lay["sub"], lay["group"]
+    n_blocks, r_rows = lay["n_blocks"], lay["r_rows"]
+    block_slots = ct.ROWS * sub * ct.LANE
+    group_rows = ct.ROWS * group
+    m2 = bmeta2.long()
+    span = m2 & ((1 << ct.SPAN_BITS) - 1)
+    c_lo = m2 >> ct.SPAN_BITS
+    dl = d.long()
+    tile = bmeta1.long() >> 1
+    if gate is None:
+        g = torch.zeros_like(tile)
+    else:
+        g = gate.long()[tile]  # dense layouts: tile is the global supertile
+    full = g == ct.GATE_FULL
+    walk_blk = (span > 0) & (g != ct.GATE_SKIP) & (
+        full | (dl[c_lo + span] != dl[c_lo]))
+    rp = row_pos.reshape(n_blocks, block_slots).long()
+    row_cls = (torch.arange(block_slots, device=rp.device) // ct.LANE) & 7
+    live = (rp >= 0) & (rp < r_rows) & ((rp & 7) == row_cls)
+    c = torch.where(live, rp // group_rows, 0)
+    walked = (live & walk_blk[:, None] & (c >= c_lo[:, None])
+              & (c < (c_lo + span)[:, None])
+              & (full[:, None] | (dl[c + 1] != dl[c])))
+    n_walked = int(walked.sum())
+    groups = int((torch.bincount(c[walked], minlength=1) > 0).sum())
+    n_walk_blocks = int(walk_blk.sum())
+    del rp, live, c, walked
+    meta = 4 * (bmeta1.numel() + bmeta2.numel()) + 4 * d.numel() + (
+        4 * gate.numel() if gate is not None else 0)
+    words_bytes = kw["n_super"] * kw["s_rows"] * (ct.LANE // ct.WORD_BITS) * 4
+    new_bytes = (4 * n_walk_blocks * block_slots + 4 * n_walked
+                 + 4 * ct.LANE * group_rows * groups + meta + words_bytes)
+    f32_bytes = (4 * row_pos.numel() + 4 * n_walked + 4 * table.numel()
+                 + meta + kw["n_super"] * kw["s_rows"] * ct.LANE * 4)
+    # slot hits: one OR each (the f32 count contract sums them)
+    hits = int(prop.propagate_torch(
+        d, bmeta1, bmeta2, table, row_pos, emeta, out_tiles=kw["n_super"],
+        s_rows=kw["s_rows"], sub=sub, group=group, gate=gate).sum())
+    return dict(walk_blocks=n_walk_blocks, blocks=n_blocks,
+                walked_slots=n_walked, groups=groups, hits=hits,
+                bytes=new_bytes, f32_bytes=f32_bytes)
+
+
+def time_sweep(lay, table, dirty, gate, label, plain_reps):
+    """Kernel and plain times of one sweep (zeroed word plane included)
+    with the bounds of its work."""
+    args, kw = operands(lay, table, dirty, gate)
+    ms = cuda_ms(lambda: words_call(prop.propagate_words_cuda, args, kw), 20)
+    plain_ms = cuda_ms(lambda: words_call(prop.propagate_words_torch, args,
+                                          kw), plain_reps)
+    work = sweep_work(lay, table, args, kw)
+    bytes_ms = work["bytes"] / HBM_BYTES_S * 1e3
+    # one OR per hit, at the card's non-tensor f32/int32 issue rate
+    ops_ms = work["hits"] / F32_OPS_S * 1e3
+    row = dict(ms=ms, plain_ms=plain_ms, bound_ms=max(bytes_ms, ops_ms),
+               bound_by="bytes" if bytes_ms >= ops_ms else "operations",
+               f32_bound_ms=work["f32_bytes"] / HBM_BYTES_S * 1e3)
+    say(f"[kernel] {form_of(gate)} {label}: walked_blocks="
+        f"{work['walk_blocks']}/{work['blocks']} walked_slots="
+        f"{work['walked_slots']} groups={work['groups']} hits={work['hits']} "
+        f"bytes={work['bytes']} f32_formula_bytes={work['f32_bytes']} "
+        f"ms={ms:.4f} plain_ms={plain_ms:.4f} bound_ms={row['bound_ms']:.4f} "
+        f"f32_formula_bound_ms={row['f32_bound_ms']:.4f} "
+        f"share_of_bound={row['bound_ms'] / ms:.3f}")
+    return row
 
 
 def main_layout_timing(lay, table, dev, errs):
@@ -193,37 +318,62 @@ def main_layout_timing(lay, table, dev, errs):
                          device=dev, generator=gen)
     part = torch.arange(n_chunks, device=dev) % 2 == 0
     for dirty, gate, label in ((all_dirty, None, "10M all dirty"),
-                               (part, gmix, "10M mixed gates")):
+                               (all_dirty, gmix, "10M all dirty, mixed gates"),
+                               (part, gmix, "10M half dirty, mixed gates")):
         compare(*operands(lay, table, dirty, gate), errs, label)
     rows = {}
-    for form, gate in (("propagate", None),
-                       ("propagate_gated",
-                        torch.zeros(lay["n_super"], dtype=torch.int32,
-                                    device=dev))):
-        args, kw = operands(lay, table, all_dirty, gate)
-        ms = cuda_ms(lambda: prop.propagate_cuda(*args, **kw), 20)
-        plain_ms = cuda_ms(lambda: prop.propagate_torch(*args, **kw), 5)
-        hits = int(prop.propagate_torch(*args, **kw).sum())
-        row_pos, emeta = args[4], args[5]
-        rp = row_pos.reshape(-1).long()
-        ri = torch.arange(rp.numel(), device=dev) // ct.LANE
-        walked = int(((rp < lay["r_rows"]) & ((rp & 7) == (ri & 7))).sum())
-        out_bytes = kw["out_tiles"] * kw["s_rows"] * ct.LANE * 4
-        nbytes = (4 * row_pos.numel() + 4 * walked + 4 * table.numel()
-                  + 4 * (args[1].numel() + args[2].numel()) + 4 * args[0].numel()
-                  + (4 * gate.numel() if gate is not None else 0) + out_bytes)
-        bytes_ms = nbytes / HBM_BYTES_S * 1e3
-        ops_ms = hits / F32_OPS_S * 1e3
-        rows[form] = dict(
-            name=form, route="cuda", source=KERNEL_SOURCE, replaces=REPLACES,
-            ms=ms, plain_ms=plain_ms, bound_ms=max(bytes_ms, ops_ms),
-            bound_by="bytes" if bytes_ms >= ops_ms else "operations",
-            library_ms=None,
-        )
-        say(f"[kernel] {form} @10M: slots={row_pos.numel()} walked={walked} "
-            f"hits={hits} bytes={nbytes} ms={ms:.4f} plain_ms={plain_ms:.4f} "
-            f"bound_ms={rows[form]['bound_ms']:.4f}")
+    for gate in (None, torch.zeros(lay["n_super"], dtype=torch.int32,
+                                   device=dev)):
+        row = time_sweep(lay, table, all_dirty, gate, "@10M full walk", 5)
+        rows[form_of(gate)] = dict(name=form_of(gate), route="cuda",
+                                   source=KERNEL_SOURCE, replaces=REPLACES,
+                                   library_ms=None, **row)
     return rows
+
+
+def push_sweep_inputs(graph, lay, dev, k):
+    """The table and dirty mask that sweep ``k`` (1-based) of a push
+    trace reads: the fixpoint of ops/cuda_trace.py's push mode, run
+    through the same sweep for its first k - 1 sweeps."""
+    n, r_rows = lay["n"], lay["r_rows"]
+    group_rows = ct.ROWS * lay["group"]
+    n_chunks = r_rows // group_rows
+    flags = torch.from_numpy(graph["flags"]).to(dev)
+    recv = torch.from_numpy(graph["recv_count"]).to(dev)
+    in_use = F.flag_set(flags, F.FLAG_IN_USE)
+    halted = F.flag_set(flags, F.FLAG_HALTED)
+    iu_w = ct.pack_bools(in_use, n, r_rows)
+    nh_w = ct.pack_bools(~halted, n, r_rows)
+    mark_w = ct.pack_bools(in_use & ~halted & F.seeds_torch(flags, recv), n,
+                           r_rows)
+    table = mark_w & nh_w
+    sweep = ct.build_sweep_contribs((ct.layout_spec(lay),), n, lay["n_super"],
+                                    lay["s_rows"])
+    d, _ = ct.dirty_group_lists(table, torch.zeros_like(table), n_chunks,
+                                group_rows)
+    for _ in range(k - 1):
+        mark_w = mark_w | (sweep(table, d, ct.device_args(lay)) & iu_w)
+        prev, table = table, mark_w & nh_w
+        d, _ = ct.dirty_group_lists(table, prev, n_chunks, group_rows)
+    return table, (d[1:] != d[:-1])
+
+
+def sparse_sweep_timing(graph, lay, dev, push_dirty, errs):
+    """Both forms on the inputs of a late push sweep at 10M: the case the
+    block skip exists for.  The dirty count must equal what the push
+    trace's stats recorded for that sweep."""
+    k = min(SPARSE_SWEEP, len(push_dirty))
+    table, dirty = push_sweep_inputs(graph, lay, dev, k)
+    check(int(dirty.sum()) == push_dirty[k - 1],
+          f"sweep {k} inputs: {int(dirty.sum())} dirty groups, the push "
+          f"trace recorded {push_dirty[k - 1]}")
+    say(f"[kernel] sparse sweep = push sweep {k} of {len(push_dirty)}: "
+        f"{int(dirty.sum())} of {dirty.numel()} walk groups dirty")
+    for gate in (None, torch.zeros(lay["n_super"], dtype=torch.int32,
+                                   device=dev)):
+        compare(*operands(lay, table, dirty, gate), errs,
+                f"10M push sweep {k}")
+        time_sweep(lay, table, dirty, gate, f"@10M push sweep {k}", 5)
 
 
 # --------------------------------------------------------------------- #
@@ -232,6 +382,8 @@ def main_layout_timing(lay, table, dev, errs):
 
 
 def phase_main(graph, lay, jp_dev, dev, n_garbage):
+    """The four trace modes at 10M; returns the push trace's dirty walk
+    groups per sweep."""
     flags = torch.from_numpy(graph["flags"]).to(dev)
     recv = torch.from_numpy(graph["recv_count"]).to(dev)
     expected = torch.from_numpy(graph["expected_garbage"]).to(dev)
@@ -254,10 +406,17 @@ def phase_main(graph, lay, jp_dev, dev, n_garbage):
             torch.cuda.synchronize()
             reps.append((time.perf_counter() - t0) * 1e3)
         p50 = float(np.median(reps))
-        say(f"[main] mode={mode} n_sweeps={stats['n_sweeps']} "
+        sweeps = int(stats["n_sweeps"])
+        dirty = [int(x) for x in
+                 stats["dirty_chunks"][:min(sweeps, ct.MAX_SWEEP_STATS)]]
+        if mode == "push":
+            push_dirty = dirty
+        say(f"[main] mode={mode} n_sweeps={sweeps} "
             f"host_syncs={stats['host_syncs']} one_shot_ms={one_ms:.2f} "
             f"p50_ms={p50:.2f} reps_ms={[round(r, 2) for r in reps]} "
-            f"garbage_actors_per_s={n_garbage / (p50 / 1e3):.4g}")
+            f"garbage_actors_per_s={n_garbage / (p50 / 1e3):.4g} "
+            f"dirty_groups_per_sweep={dirty}")
+    return push_dirty
 
 
 def phase_profile(graph, lay, jp_dev, dev):
@@ -420,11 +579,12 @@ def main():
     kernels = main_layout_timing(lay, table, dev, errs)
 
     prop.reset_launches()
-    phase_main(graph, lay, jp_dev, dev, n_garbage)
+    push_dirty = phase_main(graph, lay, jp_dev, dev, n_garbage)
     main_launches = dict(prop.launches)
     say(f"[main] launches={main_launches}")
     check(all(v > 0 for v in main_launches.values()),
           f"a kernel form was never launched on the main path: {main_launches}")
+    sparse_sweep_timing(graph, lay, dev, push_dirty, errs)
     phase_profile(graph, lay, jp_dev, dev)
     del lay, prep, graph, table, jp_dev
     torch.cuda.empty_cache()

@@ -31,22 +31,59 @@ def dev():
     return torch.device("cuda")
 
 
+def shuffle_blocks(lay, seed):
+    """The same layout blocks in another order (rows and metadata move
+    together, so every slot keeps its row class)."""
+    perm = torch.from_numpy(
+        np.random.default_rng(seed).permutation(lay["n_blocks"])
+    ).to(lay["bmeta1"].device)
+    out = dict(lay)
+    for k in ("bmeta1", "bmeta2"):
+        out[k] = lay[k][perm].contiguous()
+    for k in ("row_pos", "emeta"):
+        blocks = lay[k].reshape(lay["n_blocks"], -1)
+        out[k] = blocks[perm].reshape(lay[k].shape).contiguous()
+    return out
+
+
+def words_both(lay, table, d, gate):
+    """Both versions of one layout's sweep into fresh zeroed planes; the
+    kernel's launch is counted once on its form."""
+    args = ct.device_args(lay)
+    kw = dict(n_super=lay["n_super"], s_rows=lay["s_rows"], sub=lay["sub"],
+              group=lay["group"], gate=gate,
+              super_ids=args[4] if len(args) > 4 else None)
+    before = dict(prop.launches)
+    got = prop.propagate_words(d, *args[:2], table, *args[2:4],
+                               torch.zeros_like(table), **kw)
+    torch.cuda.synchronize()
+    form = "propagate_gated" if gate is not None else "propagate"
+    assert prop.launches[form] == before[form] + 1
+    want = prop.propagate_words_torch(d, *args[:2], table, *args[2:4],
+                                      torch.zeros_like(table), **kw)
+    return got, want
+
+
 @pytest.mark.parametrize("compact", [False, True])
 def test_kernel_equals_plain_version(dev, compact):
+    """Both forms against propagate_words_torch, exactly, on all-dirty and
+    partial dirty sets, on a block-shuffled copy of the layout, and (the
+    compact layout) with pad tiles mapped to supertile 0."""
     rng = np.random.default_rng(int(compact))
     n, n_src = 20_000, 1 << 20
     psrc = rng.integers(0, n_src, 100_000)
     pdst = np.where(rng.random(psrc.size) < 0.05, 3,
                     rng.integers(0, n, psrc.size))
     if compact:
-        keep = (pdst % 9000) < 2000
+        keep = (pdst % 9000) < 1000  # 5 supertiles, padded to 8
         psrc, pdst = psrc[keep], pdst[keep]
     prep = ct.prepare_pairs(psrc, pdst, n, n_src=n_src, s_rows=8,
                             compact_supers=compact, pad_blocks_pow2=compact)
+    if compact:
+        assert prep["out_supers"] > np.unique(prep["super_ids"]).size
     lay = ct.layout_to_device(prep, dev)
-    bmeta1, bmeta2, row_pos, emeta = ct.device_args(lay)[:4]
+    shuffled = shuffle_blocks(lay, 7)
     n_chunks = prep["r_rows"] // ct.ROWS
-    tiles = prep.get("out_supers", prep["n_super"])
     table = torch.from_numpy(
         rng.integers(-(1 << 31), 1 << 31, (prep["r_rows"], ct.LANE),
                      dtype=np.int64).astype(np.int32)
@@ -57,17 +94,11 @@ def test_kernel_equals_plain_version(dev, compact):
             np.concatenate([[0], np.cumsum(dirty)]).astype(np.int32)
         ).to(dev)
         for gate in (None, torch.from_numpy(
-                rng.integers(0, 3, tiles).astype(np.int32)).to(dev)):
-            kw = dict(out_tiles=tiles, s_rows=8, sub=1, group=1, gate=gate)
-            before = dict(prop.launches)
-            got = prop.propagate(d, bmeta1, bmeta2, table, row_pos, emeta,
-                                 **kw)
-            torch.cuda.synchronize()
-            form = "propagate_gated" if gate is not None else "propagate"
-            assert prop.launches[form] == before[form] + 1
-            want = prop.propagate_torch(d, bmeta1, bmeta2, table, row_pos,
-                                        emeta, **kw)
-            assert torch.equal(got, want)
+                rng.integers(0, 3, prep["n_super"]).astype(np.int32)).to(dev)):
+            got, want = words_both(lay, table, d, gate)
+            assert torch.equal(got, want) and bool(want.any())
+            got_s, want_s = words_both(shuffled, table, d, gate)
+            assert torch.equal(got_s, want) and torch.equal(want_s, want)
 
 
 @pytest.mark.parametrize("mode", ["push", "pull", "jump", "auto"])

@@ -9,6 +9,7 @@ comparison is exact.  The last tests pin the three invariants the
 fixpoint rests on.
 """
 
+import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
@@ -90,6 +91,58 @@ def test_multi_layout_tiers_match_reference():
     assert np.array_equal(got_m, want_m)
     assert np.array_equal(got_m, ref_trace.trace_marks_np(*g))
     assert int(got_s["n_sweeps"]) == int(want_s["n_sweeps"])
+
+
+@pytest.mark.parametrize("gated", [False, True])
+def test_multi_layout_sweep_matches_reference_packed(gated):
+    """One sweep over a dense, a compact and an xla tier: the port's word
+    plane is the reference sweep's hits plane, packed, for a seeded
+    table, dirty set and global gate."""
+    rng = np.random.default_rng(12)
+    n, n_src = 5000, 1 << 17
+    pdst = rng.integers(0, n, 12000)
+    tier = rng.integers(0, 3, pdst.size)
+    # packed tiers draw sources from every walk group; the xla tier reads
+    # sources below n only
+    psrc = np.where(tier == 2, rng.integers(0, n, pdst.size),
+                    rng.integers(0, n_src, pdst.size))
+    kw = dict(s_rows=8, n_src=n_src, pad_blocks_pow2=True)
+    base = ref.prepare_pairs(psrc[tier == 0], pdst[tier == 0], n, **kw)
+    keep = (tier == 1) & (pdst % 2500 < 600)
+    frozen = ref.prepare_pairs(psrc[keep], pdst[keep], n,
+                               compact_supers=True, **kw)
+    live = ref.xla_tier(psrc[tier == 2], pdst[tier == 2], n, 1 << 12)
+    preps = [base, frozen, live]
+    assert frozen["out_supers"] > np.unique(frozen["super_ids"]).size
+    specs = tuple(ref.layout_spec(p) for p in preps)
+    r_rows, n_super = base["r_rows"], base["n_super"]
+    n_chunks = r_rows // ref.ROWS
+    table = rng.integers(-(1 << 31), 1 << 31, (r_rows, ref.LANE),
+                         dtype=np.int64).astype(np.int32)
+    dirty = (rng.random(n_chunks) < 0.5).astype(np.int32)
+    dirty[0] = 1
+    d = np.concatenate([[0], np.cumsum(dirty)]).astype(np.int32)
+    l = np.zeros(n_chunks, np.int32)
+    l[: dirty.sum()] = np.nonzero(dirty)[0]
+    gate = (rng.integers(0, 3, n_super).astype(np.int32) if gated else None)
+    args = [a for p in preps for a in ref.device_args(p)]
+    ref_sweep = ref.build_sweep_contribs(
+        specs,
+        ref.build_layout_propagates(specs, n_super, r_rows, 8, True,
+                                    dst_gate=gated),
+        n, n_super, 8, jnp,
+    )
+    want = np.asarray(ref.pack_hits_table(
+        ref_sweep(jnp.asarray(table), d, l, [jnp.asarray(a) for a in args],
+                  gate=None if gate is None else jnp.asarray(gate)),
+        r_rows, jnp))
+    sweep = ct.build_sweep_contribs(specs, n, n_super, 8)
+    got = sweep(torch.from_numpy(table), torch.from_numpy(d),
+                [torch.from_numpy(np.ascontiguousarray(a)) for a in args],
+                gate=None if gate is None else torch.from_numpy(gate))
+    assert got.dtype == torch.int32 and got.shape == (r_rows, ref.LANE)
+    assert np.array_equal(got.numpy(), want)
+    assert (want != 0).any()
 
 
 def ref_inc_pairs(src, dst, w, sup):
@@ -221,8 +274,8 @@ def test_clean_chunk_skip_is_exact_only_under_monotone_or():
 
 
 def test_contributions_are_not_carried_across_sweeps():
-    """Each sweep's contribution plane is computed from that sweep's table
-    alone: the output starts at zero every call, so a sweep over an
+    """Each sweep's hit words are computed from that sweep's table alone:
+    the sweep ORs into a plane it zeroes every call, so a sweep over an
     empty table, or a SKIP-gated tile, contributes nothing whatever an
     earlier sweep produced."""
     rng, n, n_chunks, run, pack = multi_chunk_sweep(5)
@@ -237,13 +290,17 @@ def test_contributions_are_not_carried_across_sweeps():
                           prep["r_rows"])
     d = torch.arange(prep["r_rows"] // ct.ROWS + 1, dtype=torch.int32)
     gate = torch.zeros(prep["n_super"], dtype=torch.int32)
-    args = dict(out_tiles=prep["n_super"], s_rows=8, sub=1, group=1)
-    first = ct.propagate(d, *ct.device_args(lay)[:2], table,
-                         *ct.device_args(lay)[2:], gate=gate, **args)
+    args = dict(n_super=prep["n_super"], s_rows=8, sub=1, group=1)
+    sweep = ct.build_sweep_contribs((ct.layout_spec(prep),), 1 << 17,
+                                    prep["n_super"], 8)
+    first = sweep(table, d, ct.device_args(lay), gate=gate)
     gate[:] = ct.GATE_SKIP
-    second = ct.propagate(d, *ct.device_args(lay)[:2], table,
-                          *ct.device_args(lay)[2:], gate=gate, **args)
-    assert int(first.sum()) == 64 and int(second.sum()) == 0
+    second = sweep(table, d, ct.device_args(lay), gate=gate)
+    assert torch.equal(first, ct.propagate_words(
+        d, *ct.device_args(lay)[:2], table, *ct.device_args(lay)[2:],
+        torch.zeros_like(table), gate=gate * 0, **args))
+    assert int(ct.unpack_table(first, 1 << 17).sum()) == 64
+    assert not bool(second.any())
 
 
 def test_jump_pointer_never_outlives_its_pair():

@@ -120,9 +120,10 @@ def test_propagate_on_cpu_never_touches_the_kernel_loader(monkeypatch):
 
 def test_propagate_cuda_refuses_cpu_tensors():
     z = torch.zeros(9, dtype=torch.int32)
+    words = torch.zeros((8, 128), dtype=torch.int32)
     with pytest.raises(ValueError, match="CUDA tensors"):
-        prop.propagate_cuda(z, z, z, torch.zeros((8, 128), dtype=torch.int32),
-                            z, z, out_tiles=1, s_rows=1, sub=1, group=1)
+        prop.propagate_words_cuda(z, z, z, words, z, z, words.clone(),
+                                  n_super=1, s_rows=1, sub=1, group=1)
 
 
 @pytest.mark.parametrize("alone", [False, True])

@@ -1,8 +1,9 @@
 """Port parity: the propagate kernel's plain version and the sweep glue
 against the reference's Pallas kernel and jnp glue.
 
-``propagate_torch`` is the contract the hand-written Hopper kernel is
-held to on the card (``chip_smoke.py``); here it is held against
+``propagate_words_torch`` is the contract the hand-written Hopper kernel
+is held to on the card (``chip_smoke.py``); here it, and the f32 count
+contract ``propagate_torch`` it is built on, are held against
 ``uigc_tpu.ops.pallas_trace.build_propagate`` run in Pallas interpret
 mode, on operands from the reference's own packer.  Every comparison is
 exact: contribution planes are integer counts in f32, word tables are
@@ -124,15 +125,149 @@ def test_propagate_rejects_bad_operands():
     prep = make_layout(2, "dense")
     n_chunks = prep["r_rows"] // ref.ROWS
     d, _ = dirty_lists(n_chunks, np.ones(n_chunks, np.int32))
-    args = dict(out_tiles=prep["n_super"], s_rows=8, sub=1, group=1)
+    args = dict(n_super=prep["n_super"], s_rows=8, sub=1, group=1)
     table = np.zeros((prep["r_rows"], ref.LANE), np.int32)
+    layout = (t(prep["bmeta1"]), t(prep["bmeta2"]), t(table),
+              t(prep["row_pos"]), t(prep["emeta"]))
+    out = torch.zeros_like(t(table))
     with pytest.raises(ValueError):  # wrong dtype
-        prop.propagate(t(d).long(), t(prep["bmeta1"]), t(prep["bmeta2"]),
-                       t(table), t(prep["row_pos"]), t(prep["emeta"]), **args)
+        prop.propagate_words(t(d).long(), *layout, out, **args)
     with pytest.raises(ValueError):  # gate of the wrong size
-        prop.propagate(t(d), t(prep["bmeta1"]), t(prep["bmeta2"]), t(table),
-                       t(prep["row_pos"]), t(prep["emeta"]),
-                       gate=torch.zeros(1, dtype=torch.int32), **args)
+        prop.propagate_words(t(d), *layout, out,
+                             gate=torch.zeros(1, dtype=torch.int32), **args)
+    with pytest.raises(ValueError):  # a word plane short of the supertiles
+        prop.propagate_words(t(d), *layout, out.reshape(-1)[:7], **args)
+    with pytest.raises(ValueError):  # a float plane
+        prop.propagate_words(t(d), *layout, out.float(), **args)
+
+
+# --------------------------------------------------------------------- #
+# The words contract: the Pallas kernel's planes, thresholded and packed
+# --------------------------------------------------------------------- #
+
+
+def reference_words(prep, table, dirty, gate):
+    """The reference's hit words for one layout: its Pallas kernel run
+    in interpret mode (on the per-tile gate ``gate[super_ids]`` where the
+    layout is compact, as the reference's sweep does), thresholded,
+    scattered to global supertiles and packed with its own
+    ``pack_hits_table``."""
+    s_rows = prep["s_rows"]
+    sid = prep.get("super_ids")
+    local_gate = None if gate is None or sid is None else gate[sid]
+    _, counts = run_both(prep, table, dirty,
+                         gate if local_gate is None else local_gate)
+    if sid is not None:
+        glob = np.zeros((prep["n_super"] * s_rows, ref.LANE), np.float32)
+        rows = (sid[:, None].astype(np.int64) * s_rows
+                + np.arange(s_rows)[None, :]).reshape(-1)
+        np.add.at(glob, rows, counts)
+        counts = glob
+    return np.asarray(ref.pack_hits_table(jnp.asarray(counts > 0),
+                                          prep["r_rows"], jnp))
+
+
+def port_words(prep, table, dirty, gate, out=None):
+    n_chunks = prep["r_rows"] // (ref.ROWS * prep["group"])
+    d, _ = dirty_lists(n_chunks, dirty)
+    sid = prep.get("super_ids")
+    if out is None:
+        out = torch.zeros((prep["r_rows"], ref.LANE), dtype=torch.int32)
+    return prop.propagate_words_torch(
+        t(d), t(prep["bmeta1"]), t(prep["bmeta2"]), t(table),
+        t(prep["row_pos"]), t(prep["emeta"]), out, n_super=prep["n_super"],
+        s_rows=prep["s_rows"], sub=prep["sub"], group=prep["group"],
+        gate=None if gate is None else t(gate),
+        super_ids=None if sid is None else t(sid),
+    ).numpy()
+
+
+#: destinations of the words tests: 16 supertiles of 1,024 nodes, so a
+#: compact layout maps some of them and its packer adds pad tiles
+WORDS_N = 1 << 14
+
+
+def words_case(prep, seed, dirty_kind, gated):
+    """A seeded table, dirty mask and GLOBAL gate (one per supertile)."""
+    rng = np.random.default_rng(seed)
+    n_chunks = prep["r_rows"] // (ref.ROWS * prep["group"])
+    table = rand_words(rng, (prep["r_rows"], ref.LANE))
+    if dirty_kind == "all":
+        dirty = np.ones(n_chunks, np.int32)
+    else:
+        dirty = (np.arange(n_chunks) % 2).astype(np.int32)
+    gate = None
+    if gated:
+        gate = rng.integers(0, 3, prep["n_super"]).astype(np.int32)
+        touched = prep.get("super_ids", np.arange(prep["n_super"]))
+        # a PUSH, a FULL and a SKIP tile the layout really maps to
+        for g, tile in zip((ref.GATE_PUSH, ref.GATE_FULL, ref.GATE_SKIP),
+                           np.unique(touched)):
+            gate[tile] = g
+    return table, dirty, gate
+
+
+@pytest.mark.parametrize("gated", [False, True])
+@pytest.mark.parametrize("dirty_kind", ["all", "partial"])
+@pytest.mark.parametrize("kind", ["dense", "compact", "masked"])
+def test_propagate_words_torch_matches_pallas(kind, dirty_kind, gated):
+    """propagate_words_torch == pack(Pallas plane > 0), scattered to the
+    global supertiles, bit for bit; compact layouts index the global gate
+    through super_ids."""
+    prep = make_layout(11, kind, n=WORDS_N)
+    table, dirty, gate = words_case(prep, 5, dirty_kind, gated)
+    want = reference_words(prep, table, dirty, gate)
+    got = port_words(prep, table, dirty, gate)
+    assert got.dtype == np.int32 and got.shape == want.shape
+    assert np.array_equal(got, want)
+    assert (got != 0).any()
+    if kind == "compact":
+        # the packer padded the tile count with tiles mapped to supertile 0
+        assert prep["out_supers"] > np.unique(prep["super_ids"]).size
+
+
+@pytest.mark.parametrize("sub,group", [(2, 2), (4, 1)])
+def test_propagate_words_torch_wide_geometry(sub, group):
+    prep = make_layout(3, "dense", sub=sub, group=group, n=WORDS_N)
+    table, _, gate = words_case(prep, 9, "all", True)
+    n_chunks = prep["r_rows"] // (ref.ROWS * group)
+    dirty = np.zeros(n_chunks, np.int32)
+    dirty[1] = 1
+    want = reference_words(prep, table, dirty, gate)
+    assert np.array_equal(port_words(prep, table, dirty, gate), want)
+
+
+def permute_blocks(prep, seed):
+    """The same layout blocks in another order: each block keeps its rows
+    (a multiple of 8, so every slot keeps its row class) and metadata."""
+    rng = np.random.default_rng(seed)
+    perm = rng.permutation(prep["n_blocks"])
+    rows = ref.ROWS * prep["sub"]
+    out = dict(prep)
+    out["bmeta1"] = prep["bmeta1"][perm]
+    out["bmeta2"] = prep["bmeta2"][perm]
+    for k in ("row_pos", "emeta"):
+        blocks = prep[k].reshape(prep["n_blocks"], rows, ref.LANE)
+        out[k] = np.ascontiguousarray(blocks[perm].reshape(prep[k].shape))
+    return out
+
+
+@pytest.mark.parametrize("kind", ["dense", "compact"])
+def test_propagate_words_block_order_does_not_matter(kind):
+    """OR is order-free: permuting a layout's blocks leaves the words
+    unchanged, and a second layout ORs into a plane already holding the
+    first's hits exactly as into its own."""
+    prep = make_layout(17, kind, n=WORDS_N)
+    table, dirty, gate = words_case(prep, 2, "partial", True)
+    want = port_words(prep, table, dirty, gate)
+    shuffled = permute_blocks(prep, 4)
+    assert not np.array_equal(shuffled["bmeta1"], prep["bmeta1"])
+    assert np.array_equal(port_words(shuffled, table, dirty, gate), want)
+    other = make_layout(18, "dense", n=WORDS_N)
+    both = port_words(prep, table, dirty, gate,
+                      out=torch.from_numpy(port_words(other, table, dirty,
+                                                      gate)))
+    assert np.array_equal(both, want | port_words(other, table, dirty, gate))
 
 
 # --------------------------------------------------------------------- #
@@ -152,8 +287,8 @@ def test_pack_and_unpack_match(seed):
     r_rows, n = 16, 16 * 128 * 32 - 77
     hits2d = rng.random((12, ref.LANE)) < 0.5
     hits2d[:, 31::32] = True  # bit 31: the word's sign bit
-    got = ct.pack_hits_table(t(hits2d), r_rows).numpy()
-    want = np.asarray(ref.pack_hits_table(jnp.asarray(hits2d), r_rows, jnp))
+    got = ct.pack_hits_words(t(hits2d)).numpy()
+    want = np.asarray(ref.pack_hits_words(jnp.asarray(hits2d), jnp))
     assert got.dtype == np.int32 and np.array_equal(got, want)
     assert (got < 0).any()
     active = rng.random(n) < 0.3

@@ -145,8 +145,7 @@ def _build_wake_fn(
         d, changed = dirty_chunks(s_w, torch.zeros_like(s_w))
         host_syncs += 1
         while bool(changed):  # host sync
-            hits2d = sweep(closure_w, d, layout_args, gate=zero_gate)
-            hit_w = pt.pack_hits_table(hits2d, r_rows)
+            hit_w = sweep(closure_w, d, layout_args, gate=zero_gate)
             new_closure = closure_w | (hit_w & prev_mark_w)
             d, changed = dirty_chunks(new_closure, closure_w)
             closure_w = new_closure
@@ -203,8 +202,8 @@ def _build_wake_fn(
                 gate = base_gate
             if use_gate:
                 full_tiles = (gate == pt.GATE_FULL).sum()
-            hits2d = sweep(table, d, layout_args, gate=gate)
-            new_mark_w = mark_w | (pt.pack_hits_table(hits2d, r_rows) & iu_w)
+            hit_w = sweep(table, d, layout_args, gate=gate)
+            new_mark_w = mark_w | (hit_w & iu_w)
             if use_jump:
                 jh, jump_j = pt.jump_sweep(table, jump_j, trans_w, n)
                 new_mark_w |= pack(jh) & iu_w

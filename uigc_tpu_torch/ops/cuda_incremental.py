@@ -28,9 +28,9 @@ per-wake path with three tiers:
   fixpoint iteration — cheap while the tier is small, which freezing
   guarantees.
 
-The trace launches the propagate kernel once per packed tier and
-combines all contributions before thresholding
-(cuda_trace.trace_marks_layouts), which is equivalent to one layout
+The trace launches the propagate kernel once per packed tier, each
+ORing its hits into the sweep's one word plane
+(cuda_trace.build_sweep_contribs), which is equivalent to one layout
 holding the union of the pairs.
 
 Pairs are keyed (src, dst, kind) where kind distinguishes refob edges

@@ -9,9 +9,9 @@ What it keeps, and how:
   ``pad_layout_blocks``, ``xla_tier``, ``layout_spec``, ``device_args``
   and the jump-parent helpers).  The port's kernel reads the very
   operands the Pallas kernel reads, so one layout feeds both and their
-  per-sweep contribution planes compare bit for bit.  The layout's
-  geometry (slot row = source row mod 8, 128-slot rows, 12-bit spans)
-  was shaped by the TPU; a layout native to Hopper is later work.
+  per-sweep hits compare bit for bit.  The layout's geometry (slot row
+  = source row mod 8, 128-slot rows, 12-bit spans) was shaped by the
+  TPU; a layout native to Hopper is later work.
 - **The sweep glue, as torch ops** (``bits_at``, ``jump_sweep``,
   ``saturated_tiles``, the dirty lists, the word pack/unpack and
   ``build_sweep_contribs`` with its dense, compact and xla tiers).
@@ -24,8 +24,12 @@ What it keeps, and how:
   layout of numpy arrays, from either package's packer, into the port's
   tensors; :func:`graph_to_device` does the same for a graph dict.
 
-One sweep is :func:`ops.propagate.propagate`: the hand-written Hopper
-kernel on CUDA tensors, its plain PyTorch twin on CPU tensors.  The
+One sweep is one :func:`ops.propagate.propagate_words` per packed
+layout, all ORing into one word plane: the hand-written Hopper kernel on
+CUDA tensors, its plain PyTorch twin on CPU tensors.  The reference's
+sweep sums f32 contribution planes, thresholds and packs them; the
+port's kernel writes the packed words itself, so no contribution plane,
+no pack and no compact-tile scatter is left on the sweep.  The
 reference's ``UIGC_KERNEL_INT8`` switch chose the precision of the TPU
 matrix unit's one-hot contraction; the port's kernel is not a matrix
 product, so the switch is gone.
@@ -53,7 +57,9 @@ from .propagate import (  # the kernel ABI, named as the reference names it
     PAD_ROW,
     ROWS,
     SPAN_BITS,
-    propagate,
+    WORD_BITS,
+    pack_hits_words,
+    propagate_words,
 )
 from ..utils import events
 from ..utils.platform import resolve_device
@@ -61,13 +67,14 @@ from ..utils.validation import require
 
 #: slot sub-blocks per kernel block (block_rows = ROWS * SUB) and table
 #: row groups per walk group (group_rows = ROWS * GROUP) of new layouts.
-#: The port's kernel runs one thread per slot, so wider blocks buy
-#: nothing and only pad more; the finest walk group gives the finest
-#: dirty skip.  (1, 1) is also the reference's interpret-mode geometry,
-#: so the two packers give the same layout by default.
+#: The port's kernel gives each layout block one warp and skips a block
+#: whose span holds no walked group, so the smallest block (1,024 slots)
+#: skips at the finest grain and pads least, and the finest walk group
+#: gives the finest dirty skip.  (1, 1) is also the reference's
+#: interpret-mode geometry, so the two packers give the same layout by
+#: default.
 SUB = 1
 GROUP = 1
-WORD_BITS = 32
 #: default output sublane rows per supertile (s_rows * 128 destination
 #: nodes per output tile); 32 is the packing limit (dst_sub is 5 bits)
 S_ROWS = 32
@@ -195,13 +202,6 @@ def jump_parents_from_graph(
 # --------------------------------------------------------------------- #
 
 
-def _bit_weights(device) -> torch.Tensor:
-    """int32 word weight of each bit: 1 << b, with bit 31 wrapped to
-    -2^31 so a sum of distinct bits is the two's-complement word."""
-    w = np.left_shift(np.int64(1), np.arange(WORD_BITS, dtype=np.int64))
-    return torch.from_numpy(w.astype(np.int32)).to(device)
-
-
 def bits_at(table, ids, n):
     """Gather per-node bits from a packed word table for an integer id
     vector; ids >= n (the sentinel and any padding) read as 0."""
@@ -245,18 +245,6 @@ def hier_dirty_lists(table, table_prev, n_chunks, group_rows, n_super,
     return d, changed, super_changed
 
 
-def pack_hits_words(hits2d):
-    """Word-pack a (t, LANE) boolean hits plane into flat int32 words:
-    lane g*32+b of row t is bit b of word t*4+g (node id = 32*word + bit).
-
-    The bits of a word are distinct powers of two, so their int32 sum is
-    the word with no overflow, bit 31 included (its weight is -2^31)."""
-    t = hits2d.shape[0]
-    h3 = hits2d.to(torch.int32).reshape(t, LANE // WORD_BITS, WORD_BITS)
-    w = (h3 * _bit_weights(hits2d.device)).sum(dim=2, dtype=torch.int32)
-    return w.reshape(-1)
-
-
 def pack_bools(active, n, r_rows):
     """Pack an (n,) bool vector into the (r_rows, LANE) word table (bits
     >= n stay 0)."""
@@ -280,18 +268,9 @@ def dirty_group_lists(table, table_prev, n_chunks, group_rows):
     return d, d[n_chunks] > 0
 
 
-def pack_hits_table(hits2d, r_rows):
-    """pack_hits_words padded and reshaped into the (r_rows, LANE) word
-    table — the per-sweep pack on the fixpoint path."""
-    flat = pack_hits_words(hits2d)
-    out = torch.zeros(r_rows * LANE, dtype=torch.int32, device=flat.device)
-    out[: flat.numel()] = flat
-    return out.reshape(r_rows, LANE)
-
-
 def unpack_table(words, n):
     """Unpack the (r_rows, LANE) word table back to an (n,) bool vector
-    (inverse of pack_bools/pack_hits_table for bits < n)."""
+    (inverse of pack_bools/pack_hits_words for bits < n)."""
     flat = words.reshape(-1)[: -(-n // WORD_BITS)]
     shifts = torch.arange(WORD_BITS, dtype=torch.int32, device=words.device)
     bits = (flat[:, None] >> shifts[None, :]) & 1
@@ -300,22 +279,23 @@ def unpack_table(words, n):
 
 def build_sweep_contribs(specs, n, n_super, s_rows):
     """The per-layout propagation sweep shared by the full trace and the
-    decremental wake: returns fn(table, d, layout_args, gate) -> hits
-    plane (t_rows, LANE) bool.
+    decremental wake: returns fn(table, d, layout_args, gate) -> the
+    sweep's hit words, an int32 plane shaped like ``table``.
 
     ``layout_args`` holds each layout's operands in ``device_args`` order;
     ``gate`` is the per-global-supertile gate vector for the gated kernel
-    form, or None for the plain form.  Contributions of every layout are
-    summed before thresholding, so the union of the layouts' pairs
-    propagates.  Keeping this loop in one place is what makes the two
-    fixpoints propagate identically per sweep."""
+    form, or None for the plain form.  Every layout ORs its hits into one
+    zeroed plane, so the union of the layouts' pairs propagates: the
+    packed layouts through the kernel (a compact one maps its tiles to
+    global supertiles itself), the xla tier through a scatter-max whose
+    hits are packed and ORed in.  Keeping this loop in one place is what
+    makes the two fixpoints propagate identically per sweep."""
     t_rows = n_super * s_rows
     n_pad_nodes = t_rows * LANE
 
     def sweep(table, d, layout_args, gate=None):
         dev = table.device
-        contrib = torch.zeros((t_rows, LANE), dtype=torch.float32, device=dev)
-        xla_hits = None
+        words = torch.zeros_like(table)
         pos = 0
         for spec in specs:
             if spec[0] == "xla":
@@ -329,39 +309,28 @@ def build_sweep_contribs(specs, n, n_super, s_rows):
                                    device=dev)
                 prop.scatter_reduce_(0, pdst.long(), src_active, "amax",
                                      include_self=True)
-                hits = prop[:n_pad_nodes].reshape(t_rows, LANE) > 0
-                xla_hits = hits if xla_hits is None else xla_hits | hits
+                hits = pack_hits_words(
+                    prop[:n_pad_nodes].reshape(t_rows, LANE) > 0
+                )
+                flat = words.view(-1)
+                flat[: hits.numel()] |= hits
                 continue
             if spec[0] == "compact":
                 bmeta1, bmeta2, row_pos, emeta, super_ids = layout_args[
                     pos:pos + 5
                 ]
                 pos += 5
-                _, _, out_tiles, sub, group = spec
-                sid = super_ids.long()
-                c = propagate(
-                    d, bmeta1, bmeta2, table, row_pos, emeta,
-                    out_tiles=out_tiles, s_rows=s_rows, sub=sub, group=group,
-                    gate=None if gate is None else gate[sid].contiguous(),
-                )
-                rows = (
-                    sid[:, None] * s_rows
-                    + torch.arange(s_rows, device=dev)[None, :]
-                ).reshape(-1)
-                contrib.index_add_(0, rows, c)
             else:
                 bmeta1, bmeta2, row_pos, emeta = layout_args[pos:pos + 4]
                 pos += 4
-                _, _, sub, group = spec
-                contrib += propagate(
-                    d, bmeta1, bmeta2, table, row_pos, emeta,
-                    out_tiles=n_super, s_rows=s_rows, sub=sub, group=group,
-                    gate=gate,
-                )
-        hits2d = contrib > 0
-        if xla_hits is not None:
-            hits2d |= xla_hits
-        return hits2d
+                super_ids = None
+            sub, group = spec[-2:]
+            propagate_words(
+                d, bmeta1, bmeta2, table, row_pos, emeta, words,
+                n_super=n_super, s_rows=s_rows, sub=sub, group=group,
+                gate=gate, super_ids=super_ids,
+            )
+        return words
 
     return sweep
 
@@ -608,9 +577,9 @@ def prepare_pairs(
     if compact_supers and pad_blocks_pow2:
         # Pad the compact tile count to a power of two so repeated delta
         # packs reuse cached kernels.  Each pad tile gets one inert
-        # first-visit block (initializes its output to zero); the
-        # host-side scatter maps pad tiles to global supertile 0 with a
-        # zero contribution, which is a no-op add.
+        # first-visit block with span 0, mapped by super_ids to global
+        # supertile 0; the kernel walks no span-0 block, so a pad tile
+        # ORs nothing.
         k_pad = 1 << max(0, int(n_tiles - 1).bit_length())
         if k_pad > n_tiles:
             extra_t = k_pad - n_tiles
@@ -783,6 +752,11 @@ def layout_to_device(prep: Dict, device=None) -> Dict:
         top = int(out["bmeta1"].max()) >> 1  # readback: one-time layout check
         require(top < tiles, "layout.tiles", "block maps past the output",
                 top=top, tiles=tiles)
+    if "super_ids" in out and out["super_ids"].numel():
+        top = int(out["super_ids"].max())  # readback: one-time layout check
+        require(top < out["n_super"], "layout.tiles",
+                "compact tile maps past the supertiles", top=top,
+                n_super=out["n_super"])
     return out
 
 
@@ -817,8 +791,8 @@ def _build_trace_fn_multi(
     ``specs`` holds one static shape signature per layout (``layout_spec``):
       ("dense", n_blocks, sub, group)   — full layout, every supertile
       ("compact", n_blocks, out_tiles, sub, group) — only touched
-        supertiles, scattered into the global contribution by the
-        layout's ``super_ids`` operand
+        supertiles, mapped to global supertiles by the layout's
+        ``super_ids`` operand
       ("xla", capacity)                 — raw pair arrays propagated by a
         scatter-max; the landing tier for the newest churn
     Packed layouts sharing a trace must share (sub, group): the walk
@@ -901,8 +875,8 @@ def _build_trace_fn_multi(
                 )
                 pull_on = mode != MODE_AUTO or n_dirty >= pull_cut
                 gate = sat * GATE_SKIP if pull_on else torch.zeros_like(sat)
-            hits2d = sweep(table, d, layout_args, gate=gate)
-            new_mark_w = mark_w | (pack_hits_table(hits2d, r_rows) & iu_w)
+            hit_w = sweep(table, d, layout_args, gate=gate)
+            new_mark_w = mark_w | (hit_w & iu_w)
             if use_jump:
                 jh, jump_j = jump_sweep(table, jump_j, trans_w, n)
                 new_mark_w |= pack_bools(jh, n, r_rows) & iu_w
@@ -1007,8 +981,8 @@ def trace_marks_layouts(
     with_stats: bool = False,
 ):
     """Run the trace against one or more pair layouts that share a node
-    space (their per-node contributions are combined before
-    thresholding, so the union of the layouts' pairs propagates).  The
+    space (their hits are ORed into one word plane per sweep, so the
+    union of the layouts' pairs propagates).  The
     first layout must be a packed (non-xla) one; it pins the geometry.
     Inputs may be numpy arrays or tensors; the trace runs on ``device``
     (default: the CUDA card) and returns numpy, as the reference does.

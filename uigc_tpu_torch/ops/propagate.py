@@ -3,19 +3,29 @@ PyTorch twin, and the loader that builds the kernel from the repo's source.
 
 Replaces the TPU kernel ``uigc_tpu/ops/pallas_trace.py:build_propagate``
 (the only ``pl.pallas_call`` of the reference, ``:1181``) in both of its
-forms: without and with the destination gate (``dst_gate=True``).  The
-contract is the Pallas kernel's, on the same operands from the same host
-packer; ``csrc/propagate.cu`` states it in full.  One sweep:
+forms: without and with the destination gate (``dst_gate=True``).  It
+reads the Pallas kernel's operands, from the same host packer, but
+writes what every caller of the Pallas kernel makes of its output at
+once: packed hit words.  One sweep (``csrc/propagate.cu`` states it in
+full):
 
     for every packed (src, dst) slot whose source walk group is walked
-    (dirty, or its tile's gate is FULL; never when the gate is SKIP):
-        out[dst] += (table bit of src)
+    (dirty, or its supertile's gate is FULL; never when the gate is SKIP):
+        if (table bit of src): out word dst >> 5 |= 1 << (dst & 31)
 
-The sum is an integer count held in f32 (exact below 2^24), so the
-kernel's atomics and the plain version's ``index_add_`` agree bit for bit.
+``dst`` is the destination's global node id: a compact layout's tiles
+map to global supertiles through its ``super_ids``, and the gate is
+indexed by global supertile.  OR is order-free, so the layouts of one
+sweep OR into one plane, which the caller zeroes once per sweep.
 
-:func:`propagate` is what the trace calls: the plain version for CPU
-tensors, the kernel for CUDA tensors.  There is no fallback: a CUDA
+Two plain versions sit beside the kernel.  :func:`propagate_torch` is
+the Pallas kernel's own f32 count contract (a gather and an
+``index_add_``), kept because the CPU tests hold it against the Pallas
+kernel bit for bit; :func:`propagate_words_torch` is the kernel's
+contract, built on it: thresholded, scattered by ``super_ids``, packed.
+
+:func:`propagate_words` is what the trace calls: the plain version for
+CPU tensors, the kernel for CUDA tensors.  There is no fallback: a CUDA
 tensor whose kernel cannot be built or launched raises.
 
 The kernel is built at first use by ``nvcc`` into ``csrc/build/`` (a
@@ -33,15 +43,17 @@ import subprocess
 import time
 from pathlib import Path
 
+import numpy as np
 import torch
 
 # Kernel ABI of the packed layout (shared with ops/cuda_trace.py's packer).
 LANE = 128  # slots per layout row; lanes of the word table
 ROWS = 8  # slot row class = source table row mod 8
 SPAN_BITS = 12  # bmeta2 = c_lo << SPAN_BITS | span
+WORD_BITS = 32  # nodes per packed word
 #: row_pos sentinel of an empty or masked slot: beyond any table row
 PAD_ROW = 1 << 28
-#: per-output-tile gate values read by the gated form
+#: per-supertile gate values read by the gated form
 GATE_PUSH = 0  # walk the dirty groups inside the block's span
 GATE_FULL = 1  # walk the block's whole span
 GATE_SKIP = 2  # walk nothing
@@ -115,9 +127,9 @@ def load_library() -> ctypes.CDLL:
     global _lib
     if _lib is None:
         lib = ctypes.CDLL(str(build_library()))
-        fn = lib.uigc_propagate
+        fn = lib.uigc_propagate_words
         fn.argtypes = (
-            [ctypes.c_int] + [ctypes.c_void_p] * 8
+            [ctypes.c_int] + [ctypes.c_void_p] * 9
             + [ctypes.c_int64] + [ctypes.c_int32] * 4 + [ctypes.c_void_p]
         )
         fn.restype = ctypes.c_int
@@ -126,7 +138,31 @@ def load_library() -> ctypes.CDLL:
 
 
 # --------------------------------------------------------------------- #
-# The two versions
+# Word packing
+# --------------------------------------------------------------------- #
+
+
+def _bit_weights(device) -> torch.Tensor:
+    """int32 word weight of each bit: 1 << b, with bit 31 wrapped to
+    -2^31 so a sum of distinct bits is the two's-complement word."""
+    w = np.left_shift(np.int64(1), np.arange(WORD_BITS, dtype=np.int64))
+    return torch.from_numpy(w.astype(np.int32)).to(device)
+
+
+def pack_hits_words(hits2d):
+    """Word-pack a (t, LANE) boolean hits plane into flat int32 words:
+    lane g*32+b of row t is bit b of word t*4+g (node id = 32*word + bit).
+
+    The bits of a word are distinct powers of two, so their int32 sum is
+    the word with no overflow, bit 31 included (its weight is -2^31)."""
+    t = hits2d.shape[0]
+    h3 = hits2d.to(torch.int32).reshape(t, LANE // WORD_BITS, WORD_BITS)
+    w = (h3 * _bit_weights(hits2d.device)).sum(dim=2, dtype=torch.int32)
+    return w.reshape(-1)
+
+
+# --------------------------------------------------------------------- #
+# The plain versions and the kernel
 # --------------------------------------------------------------------- #
 
 
@@ -165,11 +201,35 @@ def _check_operands(d, bmeta1, bmeta2, table, row_pos, emeta, out_tiles,
     return r_rows, n_slots
 
 
+def _check_words_operands(d, bmeta1, bmeta2, table, row_pos, emeta, out,
+                          n_super, s_rows, sub, group, gate, super_ids):
+    """Checks of the words contract: the layout's operands, a word plane
+    that holds every global supertile, a global gate, and a compact
+    layout's tile map.  Returns the layout's tile count."""
+    if not 1 <= s_rows <= 32:
+        raise ValueError(f"s_rows {s_rows} outside [1, 32] (dst_sub is 5 bits)")
+    dev = table.device
+    out_tiles = n_super
+    if super_ids is not None:
+        _check("super_ids", super_ids, dev)
+        out_tiles = super_ids.numel()
+    _check_operands(d, bmeta1, bmeta2, table, row_pos, emeta, out_tiles,
+                    sub, group, None)
+    if gate is not None:
+        _check("gate", gate, dev, n_super)
+    _check("out", out, dev)
+    words = n_super * s_rows * (LANE // WORD_BITS)
+    if out.numel() < words:
+        raise ValueError(f"out holds {out.numel()} words, the {n_super} "
+                         f"supertiles need {words}")
+    return out_tiles
+
+
 def propagate_torch(d, bmeta1, bmeta2, table, row_pos, emeta, *, out_tiles,
                     s_rows, sub, group, gate=None):
-    """Plain PyTorch version of the kernel's contract: a gather of the
-    live slots' source bits plus an ``index_add_`` into the output plane.
-    Same operands and result as :func:`propagate_cuda`."""
+    """The Pallas kernel's contract in plain PyTorch: f32[out_tiles *
+    s_rows, LANE] contribution counts, a gather of the live slots' source
+    bits plus an ``index_add_``.  ``gate`` is per layout tile."""
     _check_operands(d, bmeta1, bmeta2, table, row_pos, emeta, out_tiles,
                     sub, group, gate)
     dev = table.device
@@ -205,31 +265,62 @@ def propagate_torch(d, bmeta1, bmeta2, table, row_pos, emeta, *, out_tiles,
     return out.reshape(out_tiles * s_rows, LANE)
 
 
-def propagate_cuda(d, bmeta1, bmeta2, table, row_pos, emeta, *, out_tiles,
-                   s_rows, sub, group, gate=None):
+def propagate_words_torch(d, bmeta1, bmeta2, table, row_pos, emeta, out, *,
+                          n_super, s_rows, sub, group, gate=None,
+                          super_ids=None):
+    """The kernel's contract in plain PyTorch: :func:`propagate_torch`,
+    thresholded, scattered to global supertiles by ``super_ids``, packed,
+    and ORed into ``out``.  Same operands and result as
+    :func:`propagate_words_cuda`; returns ``out``."""
+    out_tiles = _check_words_operands(d, bmeta1, bmeta2, table, row_pos,
+                                      emeta, out, n_super, s_rows, sub, group,
+                                      gate, super_ids)
+    dev = table.device
+    sid = None if super_ids is None else super_ids.long()
+    if gate is not None and sid is not None:
+        gate = gate[sid].contiguous()  # the Pallas contract's per-tile gate
+    c = propagate_torch(d, bmeta1, bmeta2, table, row_pos, emeta,
+                        out_tiles=out_tiles, s_rows=s_rows, sub=sub,
+                        group=group, gate=gate)
+    if sid is not None:
+        rows = (sid[:, None] * s_rows
+                + torch.arange(s_rows, device=dev)[None, :]).reshape(-1)
+        glob = torch.zeros((n_super * s_rows, LANE), dtype=torch.float32,
+                           device=dev)
+        c = glob.index_add_(0, rows, c)
+    words = pack_hits_words(c > 0)
+    flat = out.view(-1)
+    flat[: words.numel()] |= words
+    return out
+
+
+def propagate_words_cuda(d, bmeta1, bmeta2, table, row_pos, emeta, out, *,
+                         n_super, s_rows, sub, group, gate=None,
+                         super_ids=None):
     """The hand-written sm_90a kernel (``csrc/propagate.cu``), launched on
-    the current stream.  Raises when an operand is not what the kernel
-    takes, when the build fails, or when the launch is refused."""
+    the current stream: ORs one layout's hits into ``out`` and returns
+    it.  Raises when an operand is not what the kernel takes, when the
+    build fails, or when the launch is refused."""
     dev = table.device
     if dev.type != "cuda":
-        raise ValueError(f"propagate_cuda needs CUDA tensors, got {dev}")
-    r_rows, n_slots = _check_operands(
-        d, bmeta1, bmeta2, table, row_pos, emeta, out_tiles, sub, group, gate
-    )
-    if not 1 <= s_rows <= 32:
-        raise ValueError(f"s_rows {s_rows} outside [1, 32]")
-    fn = load_library().uigc_propagate
-    out = torch.zeros((out_tiles * s_rows, LANE), dtype=torch.float32,
-                      device=dev)
+        raise ValueError(f"propagate_words_cuda needs CUDA tensors, got {dev}")
+    _check_words_operands(d, bmeta1, bmeta2, table, row_pos, emeta, out,
+                          n_super, s_rows, sub, group, gate, super_ids)
+    for name, t in (("row_pos", row_pos), ("emeta", emeta)):
+        if t.data_ptr() % 16:
+            raise ValueError(f"{name} is not 16-byte aligned")
+    fn = load_library().uigc_propagate_words
     stream = torch.cuda.current_stream(dev).cuda_stream
     with torch.cuda.device(dev):
         err = fn(
             1 if gate is not None else 0,
             d.data_ptr(),
             gate.data_ptr() if gate is not None else None,
-            bmeta1.data_ptr(), bmeta2.data_ptr(), table.data_ptr(),
-            row_pos.data_ptr(), emeta.data_ptr(), out.data_ptr(),
-            n_slots, r_rows, ROWS * sub, ROWS * group, s_rows, stream,
+            bmeta1.data_ptr(), bmeta2.data_ptr(),
+            super_ids.data_ptr() if super_ids is not None else None,
+            table.data_ptr(), row_pos.data_ptr(), emeta.data_ptr(),
+            out.data_ptr(), bmeta1.numel(), table.shape[0], ROWS * sub,
+            ROWS * group, s_rows, stream,
         )
     if err != 0:
         raise RuntimeError(f"propagate kernel launch failed: CUDA error {err}")
@@ -237,18 +328,19 @@ def propagate_cuda(d, bmeta1, bmeta2, table, row_pos, emeta, *, out_tiles,
     return out
 
 
-def propagate(d, bmeta1, bmeta2, table, row_pos, emeta, *, out_tiles,
-              s_rows, sub, group, gate=None):
-    """One propagation sweep: f32[out_tiles * s_rows, LANE] contribution
-    counts.  CPU tensors take the plain version (the CPU has no kernel);
-    CUDA tensors take the kernel."""
+def propagate_words(d, bmeta1, bmeta2, table, row_pos, emeta, out, *,
+                    n_super, s_rows, sub, group, gate=None, super_ids=None):
+    """One layout's share of a propagation sweep, ORed into the int32
+    word plane ``out`` (at least ``n_super * s_rows * 4`` words; the
+    caller zeroes it once per sweep).  CPU tensors take the plain
+    version (the CPU has no kernel); CUDA tensors take the kernel."""
     kind = table.device.type
+    kw = dict(n_super=n_super, s_rows=s_rows, sub=sub, group=group,
+              gate=gate, super_ids=super_ids)
     if kind == "cpu":
-        return propagate_torch(d, bmeta1, bmeta2, table, row_pos, emeta,
-                               out_tiles=out_tiles, s_rows=s_rows, sub=sub,
-                               group=group, gate=gate)
+        return propagate_words_torch(d, bmeta1, bmeta2, table, row_pos,
+                                     emeta, out, **kw)
     if kind == "cuda":
-        return propagate_cuda(d, bmeta1, bmeta2, table, row_pos, emeta,
-                              out_tiles=out_tiles, s_rows=s_rows, sub=sub,
-                              group=group, gate=gate)
+        return propagate_words_cuda(d, bmeta1, bmeta2, table, row_pos, emeta,
+                                    out, **kw)
     raise ValueError(f"no propagate kernel for device type {kind!r}")
