@@ -32,13 +32,27 @@ Phases, each reported on its own lines:
    IncrementalCudaLayout.trace_device and DecrementalTracer; marks must
    equal trace_marks_np at every wake, and the repair sweep must have
    run FULL-gated tiles.
+6. Live collector: the port's actor runtime with the CRGC engine, its
+   collector tracing on the card (uigc.crgc.device "cuda").  run_tree
+   (BASELINE config 1: 100,000 actors, fanout 8) on "device" (trace-mode
+   auto, and push for the plain kernel form), "decremental" and
+   pipelined "decremental"; run_rings (config 3: 1,000 rings of 100) on
+   "decremental".  Each run holds the built topology for 10 collector
+   wakes (no actor may stop: an unsound verdict kills live actors), then
+   releases it; every actor must be collected and the kernel must have
+   launched inside the collector.  In the push tree and the rings, every
+   collector trace must equal trace_marks_np on the same graph arrays.
+   Launch counts are reset just before each run and read just after.
+   One launch of each kernel form at the live shapes is captured,
+   replayed and held against its plain version.
 
 Then one JSON line with the kernel table (the full-walk times; launches
-counted on the phase-4 main path) and, last,
-{"ok": true, "device": {...}}.  Any failed check
+counted on phase 6, this slice's main path, with every phase's counts
+beside them) and, last, {"ok": true, "device": {...}}.  Any failed check
 exits non-zero before that line; there is no CPU path.
 """
 
+import contextlib
 import json
 import subprocess
 import sys
@@ -47,6 +61,8 @@ import time
 import numpy as np
 import torch
 
+from uigc_tpu_torch.engines.crgc import arrays
+from uigc_tpu_torch.models import run_rings, run_tree
 from uigc_tpu_torch.models.graphgen import powerlaw_actor_graph
 from uigc_tpu_torch.ops import cuda_trace as ct
 from uigc_tpu_torch.ops import propagate as prop
@@ -65,6 +81,25 @@ N_MAIN = 10_000_000
 SPARSE_SWEEP = 8
 N_CHURN = 1_000_000
 MODES = ("push", "pull", "jump", "auto")
+#: phase 6: (label, workload, its arguments, backend, trace-mode,
+#: pipelined, every trace checked against the oracle), run in this order.
+#: The oracle's host time slows a run's collector, so the runs whose
+#: times are compared (auto tree, decremental against pipelined) go
+#: unchecked.
+LIVE_RUNS = (
+    ("tree100k/device/auto", run_tree, dict(n_actors=100_000, fanout=8),
+     "device", "auto", False, False),
+    ("tree100k/device/push", run_tree, dict(n_actors=100_000, fanout=8),
+     "device", "push", False, True),
+    ("tree100k/decremental", run_tree, dict(n_actors=100_000, fanout=8),
+     "decremental", "auto", False, False),
+    ("tree100k/decremental/pipelined", run_tree,
+     dict(n_actors=100_000, fanout=8), "decremental", "auto", True, False),
+    ("rings1000x100/decremental", run_rings,
+     dict(n_rings=1000, ring_size=100), "decremental", "auto", False, True),
+)
+HOLD_WAKES = 10
+LIVE_TIMEOUT_S = 240.0
 KERNEL_SOURCE = "uigc_tpu_torch/csrc/propagate.cu"
 REPLACES = "uigc_tpu/ops/pallas_trace.py:983"
 
@@ -540,6 +575,143 @@ def phase_churn(dev):
 
 
 # --------------------------------------------------------------------- #
+# 6. the live collector
+# --------------------------------------------------------------------- #
+
+
+class LaunchCapture:
+    """Wraps the kernel wrapper for a live run: every call goes through
+    unchanged (so it counts its launch), and the operands of the first
+    call at each new, larger word table are kept per form (clones), so
+    the last kept is a launch at the run's final geometry."""
+
+    def __init__(self):
+        self.kept = {}
+        self._wrapped = prop.propagate_words_cuda
+
+    def __enter__(self):
+        def capture(d, bmeta1, bmeta2, table, row_pos, emeta, out, **kw):
+            form = form_of(kw["gate"])
+            rows = table.shape[0]
+            if rows > self.kept.get(form, (0,))[0]:
+                clone = {k: (v.clone() if isinstance(v, torch.Tensor) else v)
+                         for k, v in kw.items()}
+                self.kept[form] = (rows, (d.clone(), bmeta1.clone(),
+                                          bmeta2.clone(), table.clone(),
+                                          row_pos.clone(), emeta.clone()),
+                                   clone)
+            return self._wrapped(d, bmeta1, bmeta2, table, row_pos, emeta,
+                                 out, **kw)
+
+        prop.propagate_words_cuda = capture
+        return self
+
+    def __exit__(self, *exc):
+        prop.propagate_words_cuda = self._wrapped
+
+
+class OracleCheck:
+    """Holds every collector trace of a live run against the numpy
+    oracle: wraps ArrayShadowGraph.compute_marks, which the ``device``
+    and synchronous ``decremental`` backends call once per traced wake on
+    the collector's thread, and compares its marks with trace_marks_np on
+    the same graph arrays.  A mismatch tells a wrong trace on the card
+    from a wrong folded graph, which the keep-alive window cannot."""
+
+    def __init__(self):
+        self.traces = 0
+        self.mismatches = 0
+        self.first = None
+        self._plain = arrays.ArrayShadowGraph.compute_marks
+
+    def __enter__(self):
+        def checked(graph):
+            mark = self._plain(graph)
+            want = trace_ops.trace_marks_np(
+                graph.flags, graph.recv_count, graph.supervisor,
+                graph.edge_src, graph.edge_dst, graph.edge_weight)
+            self.traces += 1
+            if not np.array_equal(mark, want):
+                self.mismatches += 1
+                if self.first is None:
+                    self.first = (f"trace {self.traces}: "
+                                  f"{int((want & ~mark).sum())} slots missed, "
+                                  f"{int((mark & ~want).sum())} extra")
+            return mark
+
+        arrays.ArrayShadowGraph.compute_marks = checked
+        return self
+
+    def __exit__(self, *exc):
+        arrays.ArrayShadowGraph.compute_marks = self._plain
+
+
+def live_kernel_checks(kept, errs, label):
+    """Replay each kept launch: kernel against plain version, exact, and
+    its time beside the byte bound of its work."""
+    for form, (rows, args, kw) in sorted(kept.items()):
+        compare(args, kw, errs, f"{label} live launch")
+        lay = dict(sub=kw["sub"], group=kw["group"], n_blocks=args[1].numel(),
+                   r_rows=rows, n_super=kw["n_super"], s_rows=kw["s_rows"])
+        ms = cuda_ms(lambda: words_call(prop.propagate_words_cuda, args, kw),
+                     20)
+        plain_ms = cuda_ms(lambda: words_call(prop.propagate_words_torch,
+                                              args, kw), 5)
+        work = sweep_work(lay, args[3], args, kw)
+        bound_ms = max(work["bytes"] / HBM_BYTES_S,
+                       work["hits"] / F32_OPS_S) * 1e3
+        say(f"[live] {label} {form} replayed launch: r_rows={rows} "
+            f"blocks={work['blocks']} walked_blocks={work['walk_blocks']} "
+            f"hits={work['hits']} equal=True ms={ms:.4f} "
+            f"plain_ms={plain_ms:.4f} bound_ms={bound_ms:.4f}")
+
+
+def phase_live(errs):
+    """Phase 6: each of LIVE_RUNS through the port's actor runtime with
+    the collector tracing on the card.  Returns the launches per form
+    summed over the runs."""
+    total = {"propagate": 0, "propagate_gated": 0}
+    for label, workload, args, backend, mode, pipelined, oracle in LIVE_RUNS:
+        config = {
+            "uigc.crgc.shadow-graph": backend,
+            "uigc.crgc.device": "cuda",
+            "uigc.crgc.trace-mode": mode,
+            "uigc.crgc.pipelined": pipelined,
+            "uigc.crgc.wakeup-interval": 10,
+        }
+        prop.reset_launches()
+        with LaunchCapture() as cap, (
+                OracleCheck() if oracle else contextlib.nullcontext()) as oc:
+            try:
+                r = workload(config=config, timeout_s=LIVE_TIMEOUT_S,
+                             hold_wakes=HOLD_WAKES, **args)
+            except (AssertionError, RuntimeError) as exc:
+                seen = (f" (oracle: {oc.mismatches} of {oc.traces} traces "
+                        f"differ; first {oc.first})" if oracle else "")
+                raise SmokeFailure(f"live {label}: {exc}{seen}") from exc
+        launches = dict(prop.launches)
+        n = r["n_collected"]
+        if oracle:
+            check(oc.traces > 0, f"live {label}: no trace was checked")
+            check(oc.mismatches == 0,
+                  f"live {label}: {oc.mismatches} of {oc.traces} traces "
+                  f"differ from trace_marks_np; first {oc.first}")
+            say(f"[live] {label} oracle: {oc.traces} traces equal to "
+                f"trace_marks_np")
+        check(r["held_wakes"] >= HOLD_WAKES,
+              f"live {label}: held {r['held_wakes']} wakes")
+        check(sum(launches.values()) > 0,
+              f"live {label}: the kernel never launched in the collector")
+        for form, count in launches.items():
+            total[form] += count
+        say(f"[live] {label} actors={n} build_s={r['build_s']:.3f} "
+            f"collect_s={r['collect_s']:.3f} "
+            f"collected_per_s={n / r['collect_s']:.1f} "
+            f"held_wakes={r['held_wakes']} wakes={r['wakes']} "
+            f"rebuilds={r['rebuilds']} capacity={r['capacity']} "
+            f"launches={launches}")
+        live_kernel_checks(cap.kept, errs, label)
+    return total
 
 
 def main():
@@ -547,7 +719,7 @@ def main():
         print("chip_smoke: CUDA is not available; nothing was run",
               file=sys.stderr)
         return 2
-    phase_device()
+    card = phase_device()
     dev = torch.device("cuda", 0)
     phase_build()
     errs = {"propagate": 0.0, "propagate_gated": 0.0}
@@ -595,12 +767,24 @@ def main():
     say(f"[churn] launches={churn_launches}")
     check(churn_launches["propagate_gated"] > 0,
           "the gated kernel never launched under churn")
+    torch.cuda.empty_cache()
+
+    live_launches = phase_live(errs)
+    say(f"[live] launches={live_launches}")
+    check(all(v > 0 for v in live_launches.values()),
+          f"a kernel form never launched in the live collector: "
+          f"{live_launches}")
 
     for form, row in kernels.items():
-        row["launches"] = main_launches[form]
+        row["launches"] = live_launches[form]
+        row["launches_by_phase"] = {"trace_10M": main_launches[form],
+                                    "churn_1M": churn_launches[form],
+                                    "live": live_launches[form]}
         row["max_abs_err"] = errs[form]
-    order = ("name", "route", "source", "replaces", "launches", "max_abs_err",
-             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
+    order = ("name", "route", "source", "replaces", "launches",
+             "launches_by_phase", "max_abs_err", "ms", "plain_ms", "bound_ms",
+             "bound_by", "library_ms")
+    say(card)  # the numbers above ran on this card, at this power limit
     say(json.dumps({"kernels": [{k: kernels[f][k] for k in order}
                                 for f in ("propagate", "propagate_gated")]}))
     say(json.dumps({"ok": True, "device": {

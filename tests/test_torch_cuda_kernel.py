@@ -136,3 +136,19 @@ def test_incremental_and_decremental_on_the_card(dev):
         want = trace_ops.trace_marks_np(flags, recv, sup, src, dst, w)
         assert np.array_equal(inc.trace(flags, recv), want)
         assert np.array_equal(dec.marks(flags, recv), want)
+
+
+@pytest.mark.parametrize("backend,pipelined", [
+    ("device", False), ("decremental", False), ("decremental", True)])
+def test_live_collector_traces_through_the_kernel(dev, backend, pipelined):
+    """A live actor system on the card: a released tree is collected,
+    nothing is stopped while held, and the kernel launched inside the
+    collector."""
+    from uigc_tpu_torch.models import run_tree
+
+    prop.reset_launches()
+    r = run_tree(3000, 8, timeout_s=60.0, hold_wakes=10, config={
+        "uigc.crgc.shadow-graph": backend, "uigc.crgc.device": "cuda",
+        "uigc.crgc.pipelined": pipelined, "uigc.crgc.wakeup-interval": 10})
+    assert r["n_collected"] == 3000 and r["held_wakes"] >= 10
+    assert prop.launches["propagate_gated"] > 0

@@ -8,12 +8,15 @@ caller asks for the CPU, and never fall back to the CPU on their own.
 import ast
 import subprocess
 import sys
+import threading
+import time
 from pathlib import Path
 
 import numpy as np
 import pytest
 import torch
 
+from uigc_tpu_torch import native
 from uigc_tpu_torch.models.graphgen import powerlaw_actor_graph
 from uigc_tpu_torch.ops import cuda_decremental, cuda_incremental, cuda_trace
 from uigc_tpu_torch.ops import propagate as prop
@@ -26,7 +29,19 @@ PORT_FILES = sorted((REPO / "uigc_tpu_torch").rglob("*.py")) + [
 MODULES = ("utils/validation.py", "utils/events.py", "utils/platform.py",
            "ops/trace.py", "models/graphgen.py", "ops/cuda_trace.py",
            "ops/propagate.py", "ops/slotmap.py", "ops/cuda_incremental.py",
-           "ops/cuda_decremental.py")
+           "ops/cuda_decremental.py", "config.py", "interfaces.py",
+           "runtime/__init__.py", "runtime/signals.py", "runtime/behaviors.py",
+           "runtime/context.py", "runtime/dispatcher.py", "runtime/cell.py",
+           "runtime/system.py", "runtime/testkit.py", "runtime/fabric.py",
+           "engines/__init__.py", "engines/engine.py", "engines/manual.py",
+           "engines/crgc/__init__.py", "engines/crgc/state.py",
+           "engines/crgc/refob.py", "engines/crgc/messages.py",
+           "engines/crgc/packed.py", "engines/crgc/delta.py",
+           "engines/crgc/undo.py", "engines/crgc/gateways.py",
+           "engines/crgc/shadow.py", "engines/crgc/collector.py",
+           "engines/crgc/engine.py", "engines/crgc/arrays.py",
+           "ops/i64map.py", "native/__init__.py", "native/graph.py",
+           "native/crgc_shadow.cpp", "models/workloads.py")
 
 
 def imported_roots(path):
@@ -63,6 +78,11 @@ def test_port_imports_with_jax_blocked():
         "import uigc_tpu_torch.ops.cuda_trace\n"
         "import uigc_tpu_torch.ops.cuda_decremental\n"
         "import uigc_tpu_torch.models\n"
+        "import uigc_tpu_torch.engines.crgc.engine\n"
+        "import uigc_tpu_torch.engines.crgc.arrays\n"
+        "import uigc_tpu_torch.engines.manual\n"
+        "import uigc_tpu_torch.native\n"
+        "from uigc_tpu_torch import ActorSystem, ActorTestKit\n"
         "assert 'jax' not in [m.split('.')[0] for m in sys.modules\n"
         "                     if sys.modules[m] is not None]\n"
         "print('IMPORT OK')\n"
@@ -116,6 +136,72 @@ def test_propagate_on_cpu_never_touches_the_kernel_loader(monkeypatch):
                                                     g["supervisor"], marks)
         assert np.array_equal(garbage, g["expected_garbage"])
     assert prop.launches == before  # the plain version counts no launch
+
+
+def _race(n, target):
+    """``target`` from ``n`` threads at once, with a short switch interval
+    so the threads interleave finely; returns their results."""
+    results = []
+    go = threading.Event()
+
+    def run():
+        go.wait()
+        results.append(target())
+
+    threads = [threading.Thread(target=run) for _ in range(n)]
+    interval = sys.getswitchinterval()
+    sys.setswitchinterval(1e-6)
+    try:
+        for t in threads:
+            t.start()
+        go.set()
+        for t in threads:
+            t.join(30)
+    finally:
+        sys.setswitchinterval(interval)
+    assert not any(t.is_alive() for t in threads)
+    return results
+
+
+def test_kernel_build_runs_once_across_threads(monkeypatch, tmp_path):
+    """A live collector's first wake builds the kernel on a dispatcher
+    thread: threads that load the library together build it once, into
+    one file, and share one binding."""
+    compiles = []
+
+    def fake_compile(out):
+        compiles.append(out.name)
+        time.sleep(0.2)
+        out.write_bytes(b"library")
+        return "ptxas report"
+
+    monkeypatch.setattr(prop, "BUILD_DIR", tmp_path)
+    monkeypatch.setattr(prop, "_compile", fake_compile)
+    monkeypatch.setattr(prop, "_bind", lambda path: ("bound", path.name))
+    monkeypatch.setattr(prop, "_lib", None)
+    results = _race(16, prop.load_library)
+    assert len(results) == 16 and len(set(results)) == 1
+    assert len(compiles) == 1
+    assert str(threading.get_ident()) not in compiles[0]  # a worker's name
+    assert [p.name for p in tmp_path.iterdir()] == [results[0][1]]
+
+
+def test_native_build_runs_once_across_threads(monkeypatch, tmp_path):
+    builds = []
+
+    def fake_build():
+        builds.append(threading.get_ident())
+        time.sleep(0.2)
+        Path(native._LIB).write_bytes(b"library")
+
+    monkeypatch.setattr(native, "_LIB", str(tmp_path / "libuigc_crgc.so"))
+    monkeypatch.setattr(native, "_build", fake_build)
+    monkeypatch.setattr(native.ctypes, "CDLL", lambda path: ("bound", path))
+    monkeypatch.setattr(native, "_declare", lambda lib: None)
+    monkeypatch.setattr(native, "_lib", None)
+    monkeypatch.setattr(native, "_build_error", None)
+    results = _race(16, native.load)
+    assert len(builds) == 1 and len(set(results)) == 1
 
 
 def test_propagate_cuda_refuses_cpu_tensors():

@@ -1,3 +1,4 @@
 from .graphgen import powerlaw_actor_graph, ring_graph
+from .workloads import run_rings, run_tree
 
-__all__ = ["powerlaw_actor_graph", "ring_graph"]
+__all__ = ["powerlaw_actor_graph", "ring_graph", "run_rings", "run_tree"]

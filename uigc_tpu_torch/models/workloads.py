@@ -1,0 +1,265 @@
+"""Copy of ``uigc_tpu/models/workloads.py`` (pure Python): ``run_tree`` and
+``run_rings``.  ``run_cluster_recovery`` (BASELINE config 4) needs the
+multi-node fabric and waits for it (ROADMAP.md Queue 1 item 7).  Two
+additions: ``hold_wakes`` holds the built topology for that many collector
+wakes before the release and fails if any actor stopped in that window
+(an unsound verdict kills live actors), and the result carries the
+collector's counts (``_collector_stats``).
+
+Live-runtime benchmark workloads (BASELINE configs 1-4).
+
+Each function drives the real actor runtime end to end — spawn a
+topology, release the roots' references, and time how long the selected
+GC engine takes to detect and stop every garbage actor — and returns
+``{"n_collected", "build_s", "collect_s"}``.  These are the in-repo
+analogues of the workload shapes the reference is exercised with
+(RandomSpec's 10k-actor churn, reference:
+src/test/scala/edu/illinois/osl/uigc/RandomSpec.scala:14-125; MAC's
+acyclic WRC collection; cyclic rings; and the 3-node crash-recovery path
+of BASELINE config 4).
+"""
+
+from __future__ import annotations
+
+import threading
+import time
+from typing import Any, Dict, Optional
+
+from ..interfaces import Message, NoRefs
+from ..runtime.behaviors import AbstractBehavior, Behaviors
+from ..runtime.signals import PostStop
+from ..runtime.system import ActorSystem
+
+
+class _Latch:
+    def __init__(self, count: int):
+        self._count = count
+        self._cond = threading.Condition()
+
+    def count_down(self) -> None:
+        with self._cond:
+            self._count -= 1
+            if self._count <= 0:
+                self._cond.notify_all()
+
+    def await_zero(self, timeout_s: float) -> int:
+        deadline = time.monotonic() + timeout_s
+        with self._cond:
+            while self._count > 0:
+                remaining = deadline - time.monotonic()
+                if remaining <= 0:
+                    return self._count
+                self._cond.wait(remaining)
+            return 0
+
+    @property
+    def count(self) -> int:
+        with self._cond:
+            return self._count
+
+
+def _hold(system: ActorSystem, latch: _Latch, n_actors: int, wakes: int,
+          timeout_s: float) -> int:
+    """Let the collector wake ``wakes`` times over the built topology,
+    then check that no actor stopped meanwhile.  Returns the wakes held."""
+    if wakes <= 0:
+        return 0
+    bk = system.engine.bookkeeper
+    w0 = bk.wakes
+    deadline = time.monotonic() + timeout_s
+    while bk.wakes - w0 < wakes:
+        if time.monotonic() > deadline:
+            raise RuntimeError(f"the collector woke {bk.wakes - w0} times "
+                               f"in {timeout_s} s, not {wakes}")
+        time.sleep(0.005)
+    stopped = n_actors - latch.count
+    if stopped:
+        raise RuntimeError(f"{stopped} live actors stopped while held")
+    return bk.wakes - w0
+
+
+def _collector_stats(system: ActorSystem) -> Dict[str, Any]:
+    """The CRGC collector's wakes and, for the array backends, the shadow
+    graph's full layout rebuilds and capacity (empty for other engines)."""
+    bk = getattr(system.engine, "bookkeeper", None)
+    if bk is None:
+        return {}
+    graph = bk.shadow_graph
+    return {
+        "wakes": bk.wakes,
+        "rebuilds": getattr(graph, "rebuilds", None),
+        "capacity": getattr(graph, "capacity", None),
+    }
+
+
+class _Release(NoRefs):
+    pass
+
+
+class _Ping(NoRefs):
+    pass
+
+
+class _Share(Message):
+    def __init__(self, ref):
+        self.ref = ref
+
+    @property
+    def refs(self):
+        return (self.ref,)
+
+
+def _tree_node(latch: _Latch, size: int, fanout: int):
+    """An actor that spawns a subtree of ``size`` actors (itself included)
+    and holds refs to its children until stopped."""
+
+    class TreeNode(AbstractBehavior):
+        def __init__(self, context):
+            super().__init__(context)
+            self.children = []
+            remaining = size - 1
+            k = min(fanout, remaining)
+            for i in range(k):
+                share = remaining // k + (1 if i < remaining % k else 0)
+                if share > 0:
+                    self.children.append(
+                        context.spawn(_tree_node(latch, share, fanout), f"c{i}")
+                    )
+
+        def on_message(self, msg):
+            return self
+
+        def on_signal(self, signal):
+            if signal is PostStop:
+                latch.count_down()
+            return None
+
+    return Behaviors.setup(TreeNode)
+
+
+def run_tree(
+    n_actors: int = 10_000,
+    fanout: int = 8,
+    engine: str = "crgc",
+    config: Optional[Dict[str, Any]] = None,
+    timeout_s: float = 300.0,
+    hold_wakes: int = 0,
+) -> Dict[str, Any]:
+    """Configs 1-2: an acyclic ownership tree of ``n_actors`` is released
+    by the root and must be fully collected.
+
+    The root spawns the top level directly, so ``fanout >= n_actors``
+    yields a flat topology — the shape a weighted-refcount engine (MAC)
+    can collect, since WRC cannot reclaim interior nodes that still hold
+    refs to children (the reference's MAC has the same reach,
+    reference: mac/MAC.scala:237-246 requires children.isEmpty)."""
+    latch = _Latch(n_actors)
+
+    class Root(AbstractBehavior):
+        def __init__(self, context):
+            super().__init__(context)
+            self.tops = []
+            remaining = n_actors
+            k = min(fanout, remaining)
+            for i in range(k):
+                share = remaining // k + (1 if i < remaining % k else 0)
+                if share > 0:
+                    self.tops.append(
+                        context.spawn(_tree_node(latch, share, fanout), f"t{i}")
+                    )
+
+        def on_message(self, msg):
+            if isinstance(msg, _Release):
+                self.context.release(*self.tops)
+                self.tops = []
+            return self
+
+    cfg = {"uigc.engine": engine, f"uigc.{engine}.wakeup-interval": 10}
+    cfg.update(config or {})
+    system = ActorSystem(None, name="bench-tree", config=cfg)
+    try:
+        t0 = time.perf_counter()
+        root = system.spawn_root(Behaviors.setup_root(Root), "root")
+        build_s = time.perf_counter() - t0
+
+        held = _hold(system, latch, n_actors, hold_wakes, timeout_s)
+
+        t0 = time.perf_counter()
+        root.tell(_Release())
+        left = latch.await_zero(timeout_s)
+        collect_s = time.perf_counter() - t0
+        assert left == 0, f"{left} actors never collected"
+        return {"n_collected": n_actors, "build_s": build_s,
+                "collect_s": collect_s, "held_wakes": held,
+                **_collector_stats(system)}
+    finally:
+        system.terminate()
+
+
+def run_rings(
+    n_rings: int = 100,
+    ring_size: int = 100,
+    config: Optional[Dict[str, Any]] = None,
+    timeout_s: float = 300.0,
+    hold_wakes: int = 0,
+) -> Dict[str, Any]:
+    """Config 3: mutually-referencing actor rings — cyclic garbage that a
+    trace-based engine must collect after the root releases the heads."""
+    n_actors = n_rings * ring_size
+    latch = _Latch(n_actors)
+
+    class Member(AbstractBehavior):
+        def __init__(self, context):
+            super().__init__(context)
+            self.next_ref = None
+
+        def on_message(self, msg):
+            if isinstance(msg, _Share):
+                self.next_ref = msg.ref
+            return self
+
+        def on_signal(self, signal):
+            if signal is PostStop:
+                latch.count_down()
+            return None
+
+    class Root(AbstractBehavior):
+        def __init__(self, context):
+            super().__init__(context)
+            self.members = []
+            for r in range(n_rings):
+                ring = [
+                    context.spawn(Behaviors.setup(Member), f"r{r}m{i}")
+                    for i in range(ring_size)
+                ]
+                for i, member in enumerate(ring):
+                    nxt = ring[(i + 1) % ring_size]
+                    member.tell(_Share(context.create_ref(nxt, member)), context)
+                self.members.extend(ring)
+
+        def on_message(self, msg):
+            if isinstance(msg, _Release):
+                self.context.release(*self.members)
+                self.members = []
+            return self
+
+    cfg = {"uigc.engine": "crgc", "uigc.crgc.wakeup-interval": 10}
+    cfg.update(config or {})
+    system = ActorSystem(None, name="bench-rings", config=cfg)
+    try:
+        t0 = time.perf_counter()
+        root = system.spawn_root(Behaviors.setup_root(Root), "root")
+        build_s = time.perf_counter() - t0
+
+        held = _hold(system, latch, n_actors, hold_wakes, timeout_s)
+
+        t0 = time.perf_counter()
+        root.tell(_Release())
+        left = latch.await_zero(timeout_s)
+        collect_s = time.perf_counter() - t0
+        assert left == 0, f"{left} ring members never collected"
+        return {"n_collected": n_actors, "build_s": build_s,
+                "collect_s": collect_s, "held_wakes": held,
+                **_collector_stats(system)}
+    finally:
+        system.terminate()

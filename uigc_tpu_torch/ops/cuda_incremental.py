@@ -550,12 +550,14 @@ class IncrementalCudaLayout:
                 self._dev_writes.pop(pid, None)
         return preps, args
 
-    def trace_device(self, flags_dev, recv_dev):
+    def trace_device(self, flags_dev, recv_dev, with_stats: bool = False):
         """Like :meth:`trace`, but every packed layout's operands stay
         device-resident between wakes (the reference's steady state:
         LocalGC.scala:144-186 never re-ships its graph per wake) and the
         mark vector is returned as a device tensor, so callers can reduce
-        garbage counts/ids on device instead of pulling 10M bools."""
+        garbage counts/ids on device instead of pulling 10M bools.
+        ``with_stats`` returns (marks, stats) with the stats left as
+        the fixpoint made them (device tensors and host ints)."""
         preps, args = self.prepare_device_wake()
         fn = pt.get_trace_fn_multi(
             self.n,
@@ -565,5 +567,6 @@ class IncrementalCudaLayout:
             preps[0]["s_rows"],
             mode=self.mode,
             pull_density=self.pull_density,
+            with_stats=with_stats,
         )
         return fn(flags_dev, recv_dev, *args)

@@ -1056,3 +1056,70 @@ def trace_marks_cuda(
         np.asarray(flags), np.asarray(recv_count), [prep], device=dev,
         mode=mode, jump_parent=jp,
     )
+
+
+# --------------------------------------------------------------------- #
+# Marking parents (why-live provenance)
+# --------------------------------------------------------------------- #
+
+
+def marking_parents_torch(flags, recv_count, supervisor, edge_src, edge_dst,
+                          edge_weight, device=None):
+    """Mark fixpoint with marking-parent capture, on ``device`` (default:
+    the CUDA card).  Port of ``marking_parents_jax`` (the XLA fixpoint of
+    ``uigc_tpu/ops/pallas_trace.py:_build_parents_fn``), a loop of torch
+    ``scatter_reduce_("amin")`` sweeps rather than a kernel: the reference
+    is XLA, not Pallas.
+
+    Same mark contract as ``trace_marks_np``; ``parent`` (int32[n]) is -1
+    for pseudoroot seeds and unmarked slots, else the minimum source whose
+    propagation first marked the slot, exactly as
+    ``trace_marks_np_parents`` gives it.  Dead edges and absent
+    supervisors scatter into a sink slot ``n``.  The loop reads its
+    ``newly`` flag on the host once per sweep.  Returns numpy, as the
+    reference does."""
+    F = trace_ops
+    dev = resolve_device(device)
+
+    def put(a, dtype):
+        return torch.as_tensor(np.asarray(a), device=dev).to(dtype)
+
+    flags = put(flags, torch.uint8)
+    recv_count = put(recv_count, torch.int64)
+    supervisor = put(supervisor, torch.int64)
+    edge_src = put(edge_src, torch.int64)
+    edge_dst = put(edge_dst, torch.int64)
+    edge_weight = put(edge_weight, torch.int64)
+    n = flags.shape[0]
+    in_use = F.flag_set(flags, F.FLAG_IN_USE)
+    halted = F.flag_set(flags, F.FLAG_HALTED)
+    mark = in_use & ~halted & F.seeds_torch(flags, recv_count)
+    parent = torch.full((n,), -1, dtype=torch.int64, device=dev)
+
+    live_edge = edge_weight > 0
+    sink = torch.full_like(edge_dst, n)
+    edst = torch.where(live_edge, edge_dst, sink)
+    esrc = torch.where(live_edge, edge_src, sink)
+    sup_dst = torch.where(supervisor >= 0, supervisor,
+                          torch.full_like(supervisor, n))
+    sup_src = torch.arange(n, dtype=torch.int64, device=dev)
+    false1 = torch.zeros(1, dtype=torch.bool, device=dev)
+    while True:
+        active = mark & ~halted
+        active_pad = torch.cat([active, false1])
+        cand = torch.full((n + 1,), n, dtype=torch.int64, device=dev)
+        cand.scatter_reduce_(0, edst, torch.where(active_pad[esrc], esrc, sink),
+                             "amin", include_self=True)
+        cand.scatter_reduce_(
+            0, sup_dst,
+            torch.where(active, sup_src, torch.full_like(sup_src, n)),
+            "amin", include_self=True,
+        )
+        cand = cand[:n]
+        newly = (cand < n) & ~mark & in_use
+        if not bool(newly.any()):  # host sync: the loop's changed flag
+            break
+        parent = torch.where(newly, cand, parent)
+        mark = mark | newly
+    return (mark.cpu().numpy(),  # readback: host boundary: np result contract
+            parent.to(torch.int32).cpu().numpy())

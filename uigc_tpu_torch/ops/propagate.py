@@ -40,6 +40,7 @@ import hashlib
 import os
 import shutil
 import subprocess
+import threading
 import time
 from pathlib import Path
 
@@ -68,6 +69,9 @@ BUILD_DIR = _CSRC / "build"
 #: what the last build did: library path, seconds, nvcc's ptxas report
 build_info: dict = {}
 _lib = None
+#: serializes the build and the binding: the first wake of a live
+#: collector builds on a dispatcher thread, possibly beside another
+_build_lock = threading.Lock()
 
 
 def reset_launches() -> None:
@@ -96,44 +100,66 @@ def _nvcc() -> str:
 
 def build_library() -> Path:
     """Compile ``csrc/propagate.cu`` for sm_90a unless a build of this
-    exact source exists; returns the library's path.  Raises on failure."""
+    exact source exists; returns the library's path.  Raises on failure.
+    One build at a time in this process."""
+    with _build_lock:
+        return _build_locked()
+
+
+def _build_locked() -> Path:
     digest = hashlib.sha256(_SOURCE.read_bytes()).hexdigest()[:16]
     lib_path = BUILD_DIR / f"libpropagate-{digest}.so"
     if lib_path.exists():
         build_info.update(path=str(lib_path), seconds=0.0, cached=True)
         return lib_path
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = lib_path.with_name(f"{lib_path.name}.{os.getpid()}.tmp")
+    # unique per process and thread: no two builders share a half-written file
+    tmp = lib_path.with_name(
+        f"{lib_path.name}.{os.getpid()}.{threading.get_ident()}.tmp"
+    )
+    t0 = time.perf_counter()
+    ptxas = _compile(tmp)
+    seconds = time.perf_counter() - t0
+    os.replace(tmp, lib_path)  # atomic: a concurrent loader sees all or nothing
+    build_info.update(path=str(lib_path), seconds=seconds, cached=False,
+                      ptxas=ptxas)
+    return lib_path
+
+
+def _compile(out: Path) -> str:
+    """nvcc the source into ``out``; returns ptxas's report.  Raises."""
     cmd = [
         _nvcc(), "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
         "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
-        "-o", str(tmp), str(_SOURCE),
+        "-o", str(out), str(_SOURCE),
     ]
-    t0 = time.perf_counter()
     proc = subprocess.run(cmd, capture_output=True, text=True)
-    seconds = time.perf_counter() - t0
     if proc.returncode != 0:
         raise RuntimeError(
             f"nvcc failed with code {proc.returncode}:\n{proc.stderr[-4000:]}"
         )
-    os.replace(tmp, lib_path)  # atomic: a concurrent loader sees all or nothing
-    build_info.update(path=str(lib_path), seconds=seconds, cached=False,
-                      ptxas=proc.stderr.strip())
-    return lib_path
+    return proc.stderr.strip()
+
+
+def _bind(path: Path) -> ctypes.CDLL:
+    lib = ctypes.CDLL(str(path))
+    fn = lib.uigc_propagate_words
+    fn.argtypes = (
+        [ctypes.c_int] + [ctypes.c_void_p] * 9
+        + [ctypes.c_int64] + [ctypes.c_int32] * 4 + [ctypes.c_void_p]
+    )
+    fn.restype = ctypes.c_int
+    return lib
 
 
 def load_library() -> ctypes.CDLL:
-    """The kernel library, built and bound on first call."""
+    """The kernel library, built and bound on first call, by one thread."""
     global _lib
-    if _lib is None:
-        lib = ctypes.CDLL(str(build_library()))
-        fn = lib.uigc_propagate_words
-        fn.argtypes = (
-            [ctypes.c_int] + [ctypes.c_void_p] * 9
-            + [ctypes.c_int64] + [ctypes.c_int32] * 4 + [ctypes.c_void_p]
-        )
-        fn.restype = ctypes.c_int
-        _lib = lib
+    if _lib is not None:
+        return _lib
+    with _build_lock:
+        if _lib is None:
+            _lib = _bind(_build_locked())
     return _lib
 
 

@@ -30,10 +30,21 @@ def default_device() -> torch.device:
 
 
 def resolve_device(device=None) -> torch.device:
-    """``device`` as a ``torch.device``, or :func:`default_device` for None."""
+    """``device`` as a ``torch.device``, or :func:`default_device` for None.
+
+    A CUDA device is pinned to an index here (the current card when none
+    is named), so work issued later from another thread, such as a live
+    collector's dispatcher thread, lands on the card chosen now.  A CUDA
+    device raises when no card is visible."""
     if device is None:
         return default_device()
-    return torch.device(device)
+    dev = torch.device(device)
+    if dev.type == "cuda":
+        if dev.index is None:
+            return default_device()
+        if not torch.cuda.is_available():
+            default_device()  # raises: no card is visible
+    return dev
 
 
 def require_hopper(device=None) -> tuple:
