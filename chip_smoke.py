@@ -45,6 +45,21 @@ Phases, each reported on its own lines:
    Launch counts are reset just before each run and read just after.
    One launch of each kernel form at the live shapes is captured,
    replayed and held against its plain version.
+7. MAC on the card: the port's MAC engine.  run_tree (BASELINE config 2:
+   100,000 actors, flat, default MAC settings) is host work: held for 10
+   wakeup intervals, released, every actor collected.  run_rings (10,000
+   rings of 10) with uigc.mac.cycle-detection on and uigc.mac.device
+   "cuda": 100,000 blocked candidates, above the 4,096 threshold, so the
+   detector finds SCCs with the device SCC (ops/scc.py
+   scc_labels_torch).  The rings are held for 10 detector scans (the root
+   still owns them, so nothing may stop), released, and every actor must
+   be collected in 10,000 cycles; every device SCC call the detector makes
+   must equal scc_labels_np on the same padded arrays.  Then the device
+   SCC alone, on the largest input of the rings run and on a seeded
+   random graph of 131,072 nodes (m = 3n, 80% active, -1 padding): equal
+   to scc_labels_np, with rounds, sweeps, host reads and the median ms of
+   5 calls.  The propagate launch counts are reset before the phase and
+   printed after it: MAC never launches the propagate kernel.
 
 Then one JSON line with the kernel table (the full-walk times; launches
 counted on phase 6, this slice's main path, with every phase's counts
@@ -66,6 +81,7 @@ from uigc_tpu_torch.models import run_rings, run_tree
 from uigc_tpu_torch.models.graphgen import powerlaw_actor_graph
 from uigc_tpu_torch.ops import cuda_trace as ct
 from uigc_tpu_torch.ops import propagate as prop
+from uigc_tpu_torch.ops import scc as scc_ops
 from uigc_tpu_torch.ops import trace as trace_ops
 from uigc_tpu_torch.ops.cuda_decremental import DecrementalTracer
 from uigc_tpu_torch.ops.cuda_incremental import EDGE, IncrementalCudaLayout
@@ -100,6 +116,12 @@ LIVE_RUNS = (
 )
 HOLD_WAKES = 10
 LIVE_TIMEOUT_S = 240.0
+#: phase 7: BASELINE config 2 (flat tree) and the rings of the cycle run
+MAC_FLAT_ACTORS = 100_000
+MAC_RINGS = dict(n_rings=10_000, ring_size=10)
+#: the standalone device SCC's random graph: nodes (m = 3n), seed
+SCC_RANDOM_N = 1 << 17
+SCC_REPS = 5
 KERNEL_SOURCE = "uigc_tpu_torch/csrc/propagate.cu"
 REPLACES = "uigc_tpu/ops/pallas_trace.py:983"
 
@@ -714,11 +736,164 @@ def phase_live(errs):
     return total
 
 
+# --------------------------------------------------------------------- #
+# 7. MAC on the card
+# --------------------------------------------------------------------- #
+
+
+class SccCheck:
+    """Holds every device SCC call of a live run against the Tarjan
+    oracle: wraps scc_labels_torch, which the MAC detector calls on its
+    own thread once per scan with at least the threshold's candidates,
+    and compares its labels with scc_labels_np on the same padded arrays.
+    Keeps each call's stats and the largest input (by active nodes)."""
+
+    def __init__(self):
+        self.calls = []
+        self.mismatches = 0
+        self.first = None
+        self.largest = None
+        self._plain = scc_ops.scc_labels_torch
+
+    def __enter__(self):
+        def checked(n, edge_src, edge_dst, active=None, device=None):
+            labels, stats = self._plain(n, edge_src, edge_dst, active,
+                                        device=device, with_stats=True)
+            want = scc_ops.scc_labels_np(n, edge_src, edge_dst, active)
+            live = int(np.count_nonzero(active))
+            self.calls.append(dict(stats, n=n, m=int(edge_src.size),
+                                   active=live))
+            if not np.array_equal(labels, want):
+                self.mismatches += 1
+                if self.first is None:
+                    self.first = (f"call {len(self.calls)} (n={n}): "
+                                  f"{int((labels != want).sum())} labels "
+                                  f"differ")
+            if self.largest is None or live > self.largest[0]:
+                self.largest = (live, (n, edge_src.copy(), edge_dst.copy(),
+                                       active.copy()))
+            return labels
+
+        scc_ops.scc_labels_torch = checked
+        return self
+
+    def __exit__(self, *exc):
+        scc_ops.scc_labels_torch = self._plain
+
+
+def random_scc_input(n, seed):
+    """tests/test_scc.py's generator at n nodes: m = 3n random edges over
+    n nodes, 80% of them active, and a few -1 pad edges."""
+    rng = np.random.default_rng(seed)
+    m = 3 * n
+    src = rng.integers(0, n, m).astype(np.int32)
+    dst = rng.integers(0, n, m).astype(np.int32)
+    active = rng.random(n) < 0.8
+    pad = np.full(int(rng.integers(1, 5)), -1, np.int32)
+    return n, np.concatenate([src, pad]), np.concatenate([dst, pad]), active
+
+
+def scc_timing(label, inputs, dev):
+    """The device SCC alone on ``inputs``: equal to scc_labels_np, then
+    the median of SCC_REPS calls on the host clock (each call ends in its
+    labels' copy to the host, after a synchronize)."""
+    n, src, dst, active = inputs
+    want = scc_ops.scc_labels_np(n, src, dst, active)
+    got, stats = scc_ops.scc_labels_torch(n, src, dst, active, device=dev,
+                                          with_stats=True)
+    check(np.array_equal(got, want),
+          f"device SCC on {label}: {int((got != want).sum())} labels differ "
+          f"from scc_labels_np")
+    reps = []
+    for _ in range(SCC_REPS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        scc_ops.scc_labels_torch(n, src, dst, active, device=dev)
+        torch.cuda.synchronize()
+        reps.append((time.perf_counter() - t0) * 1e3)
+    say(f"[mac] device SCC {label}: n={n} m={src.size} "
+        f"active={int(np.count_nonzero(active))} sccs={np.unique(want[active]).size} "
+        f"equal=True rounds={stats['rounds']} sweeps={stats['sweeps']} "
+        f"host_reads={stats['host_reads']} "
+        f"p50_ms={float(np.median(reps)):.3f} "
+        f"reps_ms={[round(r, 3) for r in reps]}")
+
+
+def mac_line(label, r, extra=""):
+    n = r["n_collected"]
+    say(f"[mac] {label} actors={n} build_s={r['build_s']:.3f} "
+        f"collect_s={r['collect_s']:.3f} "
+        f"collected_per_s={n / r['collect_s']:.1f} "
+        f"held_wakes={r['held_wakes']}{extra}")
+
+
+def phase_mac(dev):
+    """Phase 7: BASELINE config 2 on the port's MAC engine, then MAC's
+    cycle detector on rings with its device SCC, then the device SCC
+    alone.  Returns the propagate launches counted over the phase."""
+    prop.reset_launches()
+    try:
+        r = run_tree(n_actors=MAC_FLAT_ACTORS, fanout=1 << 30, engine="mac",
+                     timeout_s=LIVE_TIMEOUT_S, hold_wakes=HOLD_WAKES)
+    except (AssertionError, RuntimeError) as exc:
+        raise SmokeFailure(f"mac flat tree: {exc}") from exc
+    check(r["held_wakes"] >= HOLD_WAKES,
+          f"mac flat tree: held {r['held_wakes']} wake intervals")
+    mac_line(f"flat{MAC_FLAT_ACTORS // 1000}k", r,
+             " scans=0 (no cycle detection) device_scc_calls=0")
+
+    rings = MAC_RINGS["n_rings"]
+    label = f"rings{rings}x{MAC_RINGS['ring_size']}/cycles"
+    config = {"uigc.engine": "mac", "uigc.mac.cycle-detection": True,
+              "uigc.mac.wakeup-interval": 10, "uigc.mac.device": "cuda"}
+    with SccCheck() as sc:
+        try:
+            r = run_rings(config=config, timeout_s=LIVE_TIMEOUT_S,
+                          hold_wakes=HOLD_WAKES, **MAC_RINGS)
+        except (AssertionError, RuntimeError) as exc:
+            raise SmokeFailure(
+                f"mac {label}: {exc} (device SCC: {sc.mismatches} of "
+                f"{len(sc.calls)} calls differ; first {sc.first})") from exc
+    check(r["held_wakes"] >= HOLD_WAKES,
+          f"mac {label}: held {r['held_wakes']} scans")
+    check(r["total_cycles_collected"] == rings,
+          f"mac {label}: {r['total_cycles_collected']} cycles collected, "
+          f"not {rings}")
+    check(sc.calls, f"mac {label}: the detector never ran the device SCC")
+    check(sc.mismatches == 0,
+          f"mac {label}: {sc.mismatches} of {len(sc.calls)} device SCC calls "
+          f"differ from scc_labels_np; first {sc.first}")
+    mac_line(label, r, f" scans={r['scans']} device_scc_calls={len(sc.calls)}"
+             f" cycles_collected={r['total_cycles_collected']}")
+    sweeps = [c["sweeps"] for c in sc.calls]
+    say(f"[mac] {label} oracle: {len(sc.calls)} device SCC calls equal to "
+        f"scc_labels_np; active per call {min(c['active'] for c in sc.calls)}"
+        f"..{max(c['active'] for c in sc.calls)}, n_pad "
+        f"{sorted({c['n'] for c in sc.calls})}, m_pad "
+        f"{sorted({c['m'] for c in sc.calls})}, rounds "
+        f"{sorted({c['rounds'] for c in sc.calls})}, sweeps "
+        f"{min(sweeps)}..{max(sweeps)}, host reads "
+        f"{sum(c['host_reads'] for c in sc.calls)}")
+
+    scc_timing("largest rings input", sc.largest[1], dev)
+    scc_timing(f"random n={SCC_RANDOM_N}", random_scc_input(SCC_RANDOM_N, 0),
+               dev)
+    launches = dict(prop.launches)
+    say(f"[mac] propagate launches={launches}: MAC never launches the "
+        f"propagate kernel")
+    return launches
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; nothing was run",
               file=sys.stderr)
         return 2
+    t_start = time.perf_counter()
+
+    def elapsed(phase):
+        say(f"[time] {phase} done at {time.perf_counter() - t_start:.1f} s")
+
     card = phase_device()
     dev = torch.device("cuda", 0)
     phase_build()
@@ -758,6 +933,7 @@ def main():
           f"a kernel form was never launched on the main path: {main_launches}")
     sparse_sweep_timing(graph, lay, dev, push_dirty, errs)
     phase_profile(graph, lay, jp_dev, dev)
+    elapsed("phases 1-4")
     del lay, prep, graph, table, jp_dev
     torch.cuda.empty_cache()
 
@@ -767,6 +943,7 @@ def main():
     say(f"[churn] launches={churn_launches}")
     check(churn_launches["propagate_gated"] > 0,
           "the gated kernel never launched under churn")
+    elapsed("phase 5")
     torch.cuda.empty_cache()
 
     live_launches = phase_live(errs)
@@ -774,12 +951,18 @@ def main():
     check(all(v > 0 for v in live_launches.values()),
           f"a kernel form never launched in the live collector: "
           f"{live_launches}")
+    elapsed("phase 6")
+
+    torch.cuda.empty_cache()
+    mac_launches = phase_mac(dev)
+    elapsed("phase 7")
 
     for form, row in kernels.items():
         row["launches"] = live_launches[form]
         row["launches_by_phase"] = {"trace_10M": main_launches[form],
                                     "churn_1M": churn_launches[form],
-                                    "live": live_launches[form]}
+                                    "live": live_launches[form],
+                                    "mac": mac_launches[form]}
         row["max_abs_err"] = errs[form]
     order = ("name", "route", "source", "replaces", "launches",
              "launches_by_phase", "max_abs_err", "ms", "plain_ms", "bound_ms",

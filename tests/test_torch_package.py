@@ -20,6 +20,7 @@ from uigc_tpu_torch import native
 from uigc_tpu_torch.models.graphgen import powerlaw_actor_graph
 from uigc_tpu_torch.ops import cuda_decremental, cuda_incremental, cuda_trace
 from uigc_tpu_torch.ops import propagate as prop
+from uigc_tpu_torch.ops import scc as scc_ops
 from uigc_tpu_torch.ops import trace as trace_ops
 
 REPO = Path(__file__).resolve().parent.parent
@@ -41,7 +42,10 @@ MODULES = ("utils/validation.py", "utils/events.py", "utils/platform.py",
            "engines/crgc/shadow.py", "engines/crgc/collector.py",
            "engines/crgc/engine.py", "engines/crgc/arrays.py",
            "ops/i64map.py", "native/__init__.py", "native/graph.py",
-           "native/crgc_shadow.cpp", "models/workloads.py")
+           "native/crgc_shadow.cpp", "models/workloads.py", "ops/scc.py",
+           "engines/mac/__init__.py", "engines/mac/engine.py",
+           "engines/mac/detector.py", "engines/drl/__init__.py",
+           "engines/drl/engine.py")
 
 
 def imported_roots(path):
@@ -81,6 +85,9 @@ def test_port_imports_with_jax_blocked():
         "import uigc_tpu_torch.engines.crgc.engine\n"
         "import uigc_tpu_torch.engines.crgc.arrays\n"
         "import uigc_tpu_torch.engines.manual\n"
+        "import uigc_tpu_torch.engines.mac\n"
+        "import uigc_tpu_torch.engines.drl\n"
+        "import uigc_tpu_torch.ops.scc\n"
         "import uigc_tpu_torch.native\n"
         "from uigc_tpu_torch import ActorSystem, ActorTestKit\n"
         "assert 'jax' not in [m.split('.')[0] for m in sys.modules\n"
@@ -110,6 +117,7 @@ def test_entry_points_raise_without_a_card(monkeypatch):
         lambda: cuda_trace.graph_to_device(g),
         lambda: cuda_incremental.IncrementalCudaLayout(256),
         lambda: cuda_decremental.DecrementalTracer(256),
+        lambda: scc_ops.scc_labels_torch(256, g["edge_src"], g["edge_dst"]),
     ]
     for call in calls:
         with pytest.raises(RuntimeError, match="no CUDA device"):

@@ -237,8 +237,8 @@ def test_device_backends_raise_without_a_card(backend, monkeypatch):
 
 
 @pytest.mark.parametrize("config", [
-    {"uigc.engine": "mac"},
-    {"uigc.engine": "drl"},
+    {"uigc.telemetry.tracing": True},
+    {"uigc.telemetry.device": True},
     {"uigc.crgc.shadow-graph": "mesh"},
     {"uigc.crgc.shadow-graph": "mesh-decremental"},
     {"uigc.telemetry.metrics": True},

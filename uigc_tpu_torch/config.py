@@ -1,7 +1,8 @@
 """Copy of ``uigc_tpu/config.py`` (pure Python), with the same ``DEFAULTS``
-plus one key, ``uigc.crgc.device``: where the port's ``device`` and
-``decremental`` backends trace ("cuda", the default, or "cpu").  It is the
-port's counterpart of ``JAX_PLATFORMS``.  In the port, "device" and
+plus two keys: ``uigc.crgc.device``, where the port's ``device`` and
+``decremental`` backends trace, and ``uigc.mac.device``, where the MAC
+cycle detector runs its device SCC ("cuda", the default, or "cpu").  They
+are the port's counterpart of ``JAX_PLATFORMS``.  In the port, "device" and
 "decremental" trace on the CUDA card through the hand-written propagate
 kernel (``ops/cuda_incremental.py``, ``ops/cuda_decremental.py``);
 "mesh"/"mesh-decremental" are not ported yet and raise.
@@ -129,6 +130,11 @@ DEFAULTS: Dict[str, Any] = {
     # host Tarjan to the device SCC kernel (ops/scc.py).  0 forces the
     # device path; large values keep detection host-side.
     "uigc.mac.device-scc-threshold": 4096,
+    # Where the cycle detector runs its device SCC: "cuda" (the card;
+    # building a system with cycle detection on raises when none is
+    # visible) or "cpu" (the same torch ops on the CPU).  Read only with
+    # uigc.mac.cycle-detection on.
+    "uigc.mac.device": "cuda",
     # --- Node transport settings (runtime/node.py; no reference
     # analogue — the reference delegates failure detection to Akka
     # Cluster, we carry our own) ---

@@ -1,5 +1,4 @@
-"""Copy of ``uigc_tpu/engines/__init__.py`` (pure Python); "mac" and
-"drl" raise ``NotImplementedError`` until those engines are ported.
+"""Copy of ``uigc_tpu/engines/__init__.py`` (pure Python).
 
 GC engine registry.
 
@@ -26,15 +25,18 @@ def create_engine(system: "ActorSystem") -> Engine:
         from .crgc.engine import CRGC
 
         return CRGC(system)
-    if name in ("mac", "drl"):
-        raise NotImplementedError(
-            f"uigc.engine={name!r}: the MAC and DRL engines are not ported "
-            "yet (ROADMAP.md Queue 1 item 4)"
-        )
+    if name == "mac":
+        from .mac.engine import MAC
+
+        return MAC(system)
     if name == "manual":
         from .manual import Manual
 
         return Manual(system)
+    if name == "drl":
+        from .drl.engine import DRL
+
+        return DRL(system)
     raise ValueError(f"unknown uigc.engine: {name!r}")
 
 

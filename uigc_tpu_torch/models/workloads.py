@@ -4,7 +4,10 @@ multi-node fabric and waits for it (ROADMAP.md Queue 1 item 7).  Two
 additions: ``hold_wakes`` holds the built topology for that many collector
 wakes before the release and fails if any actor stopped in that window
 (an unsound verdict kills live actors), and the result carries the
-collector's counts (``_collector_stats``).
+collector's counts (``_collector_stats``).  A collector wake is a CRGC
+Bookkeeper wake or, for MAC with cycle detection, a detector scan; an
+engine with no collector is held for that many wakeup intervals on the
+host clock.
 
 Live-runtime benchmark workloads (BASELINE configs 1-4).
 
@@ -23,7 +26,7 @@ from __future__ import annotations
 
 import threading
 import time
-from typing import Any, Dict, Optional
+from typing import Any, Callable, Dict, Optional
 
 from ..interfaces import Message, NoRefs
 from ..runtime.behaviors import AbstractBehavior, Behaviors
@@ -58,29 +61,55 @@ class _Latch:
             return self._count
 
 
+def _wake_counter(system: ActorSystem) -> Optional[Callable[[], int]]:
+    """The engine's collector wakes so far, as a function: the CRGC
+    Bookkeeper's wakes or the MAC cycle detector's scans; None for an
+    engine with no collector."""
+    bk = getattr(system.engine, "bookkeeper", None)
+    if bk is not None:
+        return lambda: bk.wakes
+    detector = getattr(system.engine, "detector", None)
+    if detector is not None:
+        return lambda: detector.scans
+    return None
+
+
 def _hold(system: ActorSystem, latch: _Latch, n_actors: int, wakes: int,
           timeout_s: float) -> int:
-    """Let the collector wake ``wakes`` times over the built topology,
-    then check that no actor stopped meanwhile.  Returns the wakes held."""
+    """Let the collector wake ``wakes`` times over the built topology
+    (without a collector: wait ``wakes`` wakeup intervals), then check
+    that no actor stopped meanwhile.  Returns the wakes held."""
     if wakes <= 0:
         return 0
-    bk = system.engine.bookkeeper
-    w0 = bk.wakes
-    deadline = time.monotonic() + timeout_s
-    while bk.wakes - w0 < wakes:
-        if time.monotonic() > deadline:
-            raise RuntimeError(f"the collector woke {bk.wakes - w0} times "
-                               f"in {timeout_s} s, not {wakes}")
-        time.sleep(0.005)
+    count = _wake_counter(system)
+    if count is None:
+        engine = system.config.get_string("uigc.engine")
+        interval_ms = system.config.get(f"uigc.{engine}.wakeup-interval", 50)
+        time.sleep(wakes * interval_ms / 1000.0)
+        held = wakes
+    else:
+        w0 = count()
+        deadline = time.monotonic() + timeout_s
+        while count() - w0 < wakes:
+            if time.monotonic() > deadline:
+                raise RuntimeError(f"the collector woke {count() - w0} times "
+                                   f"in {timeout_s} s, not {wakes}")
+            time.sleep(0.005)
+        held = count() - w0
     stopped = n_actors - latch.count
     if stopped:
         raise RuntimeError(f"{stopped} live actors stopped while held")
-    return bk.wakes - w0
+    return held
 
 
 def _collector_stats(system: ActorSystem) -> Dict[str, Any]:
     """The CRGC collector's wakes and, for the array backends, the shadow
-    graph's full layout rebuilds and capacity (empty for other engines)."""
+    graph's full layout rebuilds and capacity; the MAC cycle detector's
+    scans and cycles collected (empty for other engines)."""
+    detector = getattr(system.engine, "detector", None)
+    if detector is not None:
+        return {"scans": detector.scans,
+                "total_cycles_collected": detector.total_cycles_collected}
     bk = getattr(system.engine, "bookkeeper", None)
     if bk is None:
         return {}
