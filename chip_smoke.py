@@ -61,10 +61,30 @@ Phases, each reported on its own lines:
    5 calls.  The propagate launch counts are reset before the phase and
    printed after it: MAC never launches the propagate kernel.
 
+8. The mesh (``[mesh]`` lines): the sharded trace of
+   parallel/sharded_trace.py with 4 shards on the one card (an explicit
+   device tuple with repeats).  (a) The dryrun_multichip step of
+   __graft_entry__.py: a sharded fold, then the bool fixpoint
+   make_sharded_trace, equal to trace_marks_np.  (b) Phase 4's 10M graph
+   (kept, not regenerated) packed into 4 shard layouts, 1% of its pairs
+   held back into the insert buckets, traced by make_sharded_cuda_trace
+   in push and auto: the marks must equal phase 4's single-device marks
+   and the garbage set expected_garbage, and the gated launches must be
+   shards x sweeps; p50 of 5 beside the single-device p50 of phase 4.
+   One shard's full-walk sweep is held against the plain version and
+   timed beside its byte bound.  (c) The sharded decremental wake at 1M
+   actors, 4 shards: 11 wakes of flag churn, bucket inserts and base-slot
+   masks, each equal to trace_marks_np.  (d) Live: run_tree at 100,000
+   actors on "mesh" (auto, every collector trace held against
+   trace_marks_np) and pipelined "mesh-decremental", uigc.crgc.mesh-devices
+   0 (every card: one shard here), held for 10 wakes, released, every
+   actor collected, the gated kernel launched inside the collector, and
+   one launch replayed against its plain version.
+
 Then one JSON line with the kernel table (the full-walk times; launches
-counted on phase 6, this slice's main path, with every phase's counts
-beside them) and, last, {"ok": true, "device": {...}}.  Any failed check
-exits non-zero before that line; there is no CPU path.
+counted on phase 6, the live collector, with every phase's counts beside
+them) and, last, {"ok": true, "device": {...}}.  Any failed check exits
+non-zero before that line; there is no CPU path.
 """
 
 import contextlib
@@ -77,6 +97,7 @@ import numpy as np
 import torch
 
 from uigc_tpu_torch.engines.crgc import arrays
+from uigc_tpu_torch.engines.crgc import mesh as mesh_backend
 from uigc_tpu_torch.models import run_rings, run_tree
 from uigc_tpu_torch.models.graphgen import powerlaw_actor_graph
 from uigc_tpu_torch.ops import cuda_trace as ct
@@ -85,6 +106,7 @@ from uigc_tpu_torch.ops import scc as scc_ops
 from uigc_tpu_torch.ops import trace as trace_ops
 from uigc_tpu_torch.ops.cuda_decremental import DecrementalTracer
 from uigc_tpu_torch.ops.cuda_incremental import EDGE, IncrementalCudaLayout
+from uigc_tpu_torch.parallel import sharded_trace as st
 from uigc_tpu_torch.utils.platform import require_hopper
 
 F = trace_ops
@@ -122,6 +144,15 @@ MAC_RINGS = dict(n_rings=10_000, ring_size=10)
 #: the standalone device SCC's random graph: nodes (m = 3n), seed
 SCC_RANDOM_N = 1 << 17
 SCC_REPS = 5
+#: phase 8: shards on the one card, the share of the 10M pairs held back
+#: into the insert buckets, and the churn of each 1M sharded wake
+MESH_SHARDS = 4
+MESH_BUCKET_SHARE = 0.01
+MESH_CHURN = dict(flags=1000, inserts=500, deletes=500)
+MESH_LIVE_RUNS = (
+    ("tree100k/mesh/auto", "mesh", False, True),
+    ("tree100k/mesh-decremental/pipelined", "mesh-decremental", True, False),
+)
 KERNEL_SOURCE = "uigc_tpu_torch/csrc/propagate.cu"
 REPLACES = "uigc_tpu/ops/pallas_trace.py:983"
 
@@ -440,11 +471,12 @@ def sparse_sweep_timing(graph, lay, dev, push_dirty, errs):
 
 def phase_main(graph, lay, jp_dev, dev, n_garbage):
     """The four trace modes at 10M; returns the push trace's dirty walk
-    groups per sweep."""
+    groups per sweep and the p50 ms of each mode."""
     flags = torch.from_numpy(graph["flags"]).to(dev)
     recv = torch.from_numpy(graph["recv_count"]).to(dev)
     expected = torch.from_numpy(graph["expected_garbage"]).to(dev)
     in_use = F.flag_set(flags, F.FLAG_IN_USE)
+    p50s = {}
     for mode in MODES:
         fn = ct.get_trace_fn(lay, mode=mode, with_stats=True)
         args = [flags, recv] + ([jp_dev] if mode in ("jump", "auto") else [])
@@ -462,7 +494,7 @@ def phase_main(graph, lay, jp_dev, dev, n_garbage):
             marks, _ = fn(*args)
             torch.cuda.synchronize()
             reps.append((time.perf_counter() - t0) * 1e3)
-        p50 = float(np.median(reps))
+        p50 = p50s[mode] = float(np.median(reps))
         sweeps = int(stats["n_sweeps"])
         dirty = [int(x) for x in
                  stats["dirty_chunks"][:min(sweeps, ct.MAX_SWEEP_STATS)]]
@@ -473,7 +505,7 @@ def phase_main(graph, lay, jp_dev, dev, n_garbage):
             f"p50_ms={p50:.2f} reps_ms={[round(r, 2) for r in reps]} "
             f"garbage_actors_per_s={n_garbage / (p50 / 1e3):.4g} "
             f"dirty_groups_per_sweep={dirty}")
-    return push_dirty
+    return push_dirty, p50s
 
 
 def phase_profile(graph, lay, jp_dev, dev):
@@ -634,17 +666,19 @@ class LaunchCapture:
 
 class OracleCheck:
     """Holds every collector trace of a live run against the numpy
-    oracle: wraps ArrayShadowGraph.compute_marks, which the ``device``
-    and synchronous ``decremental`` backends call once per traced wake on
-    the collector's thread, and compares its marks with trace_marks_np on
-    the same graph arrays.  A mismatch tells a wrong trace on the card
-    from a wrong folded graph, which the keep-alive window cannot."""
+    oracle: wraps ``cls.compute_marks`` (ArrayShadowGraph's, which the
+    ``device`` and synchronous ``decremental`` backends call once per
+    traced wake on the collector's thread, or MeshShadowGraph's), and
+    compares its marks with trace_marks_np on the same graph arrays.  A
+    mismatch tells a wrong trace on the card from a wrong folded graph,
+    which the keep-alive window cannot."""
 
-    def __init__(self):
+    def __init__(self, cls=arrays.ArrayShadowGraph):
         self.traces = 0
         self.mismatches = 0
         self.first = None
-        self._plain = arrays.ArrayShadowGraph.compute_marks
+        self._cls = cls
+        self._plain = cls.compute_marks
 
     def __enter__(self):
         def checked(graph):
@@ -661,11 +695,11 @@ class OracleCheck:
                                   f"{int((mark & ~want).sum())} extra")
             return mark
 
-        arrays.ArrayShadowGraph.compute_marks = checked
+        self._cls.compute_marks = checked
         return self
 
     def __exit__(self, *exc):
-        arrays.ArrayShadowGraph.compute_marks = self._plain
+        self._cls.compute_marks = self._plain
 
 
 def live_kernel_checks(kept, errs, label):
@@ -688,6 +722,45 @@ def live_kernel_checks(kept, errs, label):
             f"plain_ms={plain_ms:.4f} bound_ms={bound_ms:.4f}")
 
 
+def live_run(label, workload, args, config, errs, oracle=None):
+    """One live run with the collector on the card: launch counts reset
+    just before and read just after, every collector trace held against
+    trace_marks_np when ``oracle`` (the shadow-graph class whose
+    compute_marks to wrap) is given, the hold window and the collection
+    checked, and each kept launch replayed.  Returns its launches."""
+    prop.reset_launches()
+    with LaunchCapture() as cap, (
+            OracleCheck(oracle) if oracle else contextlib.nullcontext()) as oc:
+        try:
+            r = workload(config=config, timeout_s=LIVE_TIMEOUT_S,
+                         hold_wakes=HOLD_WAKES, **args)
+        except (AssertionError, RuntimeError) as exc:
+            seen = (f" (oracle: {oc.mismatches} of {oc.traces} traces "
+                    f"differ; first {oc.first})" if oracle else "")
+            raise SmokeFailure(f"live {label}: {exc}{seen}") from exc
+    launches = dict(prop.launches)
+    n = r["n_collected"]
+    if oracle:
+        check(oc.traces > 0, f"live {label}: no trace was checked")
+        check(oc.mismatches == 0,
+              f"live {label}: {oc.mismatches} of {oc.traces} traces "
+              f"differ from trace_marks_np; first {oc.first}")
+        say(f"[live] {label} oracle: {oc.traces} traces equal to "
+            f"trace_marks_np")
+    check(r["held_wakes"] >= HOLD_WAKES,
+          f"live {label}: held {r['held_wakes']} wakes")
+    check(sum(launches.values()) > 0,
+          f"live {label}: the kernel never launched in the collector")
+    say(f"[live] {label} actors={n} build_s={r['build_s']:.3f} "
+        f"collect_s={r['collect_s']:.3f} "
+        f"collected_per_s={n / r['collect_s']:.1f} "
+        f"held_wakes={r['held_wakes']} wakes={r['wakes']} "
+        f"rebuilds={r['rebuilds']} capacity={r['capacity']} "
+        f"launches={launches}")
+    live_kernel_checks(cap.kept, errs, label)
+    return launches
+
+
 def phase_live(errs):
     """Phase 6: each of LIVE_RUNS through the port's actor runtime with
     the collector tracing on the card.  Returns the launches per form
@@ -701,38 +774,10 @@ def phase_live(errs):
             "uigc.crgc.pipelined": pipelined,
             "uigc.crgc.wakeup-interval": 10,
         }
-        prop.reset_launches()
-        with LaunchCapture() as cap, (
-                OracleCheck() if oracle else contextlib.nullcontext()) as oc:
-            try:
-                r = workload(config=config, timeout_s=LIVE_TIMEOUT_S,
-                             hold_wakes=HOLD_WAKES, **args)
-            except (AssertionError, RuntimeError) as exc:
-                seen = (f" (oracle: {oc.mismatches} of {oc.traces} traces "
-                        f"differ; first {oc.first})" if oracle else "")
-                raise SmokeFailure(f"live {label}: {exc}{seen}") from exc
-        launches = dict(prop.launches)
-        n = r["n_collected"]
-        if oracle:
-            check(oc.traces > 0, f"live {label}: no trace was checked")
-            check(oc.mismatches == 0,
-                  f"live {label}: {oc.mismatches} of {oc.traces} traces "
-                  f"differ from trace_marks_np; first {oc.first}")
-            say(f"[live] {label} oracle: {oc.traces} traces equal to "
-                f"trace_marks_np")
-        check(r["held_wakes"] >= HOLD_WAKES,
-              f"live {label}: held {r['held_wakes']} wakes")
-        check(sum(launches.values()) > 0,
-              f"live {label}: the kernel never launched in the collector")
+        launches = live_run(label, workload, args, config, errs,
+                            arrays.ArrayShadowGraph if oracle else None)
         for form, count in launches.items():
             total[form] += count
-        say(f"[live] {label} actors={n} build_s={r['build_s']:.3f} "
-            f"collect_s={r['collect_s']:.3f} "
-            f"collected_per_s={n / r['collect_s']:.1f} "
-            f"held_wakes={r['held_wakes']} wakes={r['wakes']} "
-            f"rebuilds={r['rebuilds']} capacity={r['capacity']} "
-            f"launches={launches}")
-        live_kernel_checks(cap.kept, errs, label)
     return total
 
 
@@ -884,6 +929,308 @@ def phase_mac(dev):
     return launches
 
 
+# --------------------------------------------------------------------- #
+# 8. the mesh
+# --------------------------------------------------------------------- #
+
+
+def mesh_dryrun(dev):
+    """8a: __graft_entry__.py's dryrun_multichip step on MESH_SHARDS
+    shards of the card: a sharded fold, then the bool fixpoint."""
+    d = MESH_SHARDS
+    graph = powerlaw_actor_graph(16 * d, seed=1, garbage_fraction=0.5)
+    packed = st.shard_graph(graph, d)
+    mesh = st.Mesh([dev] * d)
+    n_pad, ss = packed["n_pad"], packed["shard_size"]
+    # one busy-flag set and one receive-count bump per shard, and a pad
+    slots = np.zeros((d, 2), np.int32)
+    slots[:, 0] = 1
+    slots[:, 1] = ss
+    recv_delta = np.zeros((d, 2), np.int64)
+    recv_delta[:, 0] = 1
+    flag_set = np.zeros((d, 2), np.uint8)
+    flag_set[:, 0] = F.FLAG_BUSY
+    flags, recv = st.make_sharded_fold(mesh)(
+        packed["flags"], packed["recv_count"], slots, recv_delta, flag_set,
+        np.zeros((d, 2), np.uint8))
+    mark = st.to_host(st.make_sharded_trace(mesh)(
+        flags, recv, packed["pair_src"], packed["pair_dst"]))
+    check(mark.shape == (n_pad,) and mark.any(),
+          "mesh dryrun: the sharded trace marked nothing")
+    sup = np.full(n_pad, -1, np.int32)
+    sup[: graph["supervisor"].size] = graph["supervisor"]
+    want = F.trace_marks_np(st.to_host(flags), st.to_host(recv), sup,
+                            graph["edge_src"], graph["edge_dst"],
+                            graph["edge_weight"])
+    check(np.array_equal(mark, want),
+          "mesh dryrun: the sharded trace differs from trace_marks_np")
+    say(f"[mesh] dryrun_multichip: {d} shards on {dev} n_pad={n_pad} "
+        f"marked={int(mark.sum())} equal to trace_marks_np")
+
+
+def padded_nodes(graph, n_pad):
+    n = graph["flags"].size
+    flags = np.zeros(n_pad, np.uint8)
+    flags[:n] = graph["flags"]
+    recv = np.zeros(n_pad, np.int64)
+    recv[:n] = graph["recv_count"]
+    return flags, recv
+
+
+def mesh_geometry(n, d):
+    """n_pad for n nodes on d shards of whole supertiles."""
+    chunk = d * ct.S_ROWS * ct.LANE
+    return -(-n // chunk) * chunk
+
+
+def mesh_main(graph, single_marks, single_p50, dev, errs):
+    """8b: phase 4's 10M graph on MESH_SHARDS shards of the card, with
+    MESH_BUCKET_SHARE of its pairs in the insert buckets, in push and
+    auto; then one shard's full walk against the plain version, timed
+    beside its byte bound.  Returns the traces' launches."""
+    d, n = MESH_SHARDS, N_MAIN
+    n_pad = mesh_geometry(n, d)
+    psrc, pdst, _ = IncrementalCudaLayout.pairs_from_graph(
+        graph["edge_src"], graph["edge_dst"], graph["edge_weight"],
+        graph["supervisor"])
+    held = np.random.default_rng(0).random(psrc.size) < MESH_BUCKET_SHARE
+    t0 = time.perf_counter()
+    stacked, meta, _ = st.pack_shard_layouts(psrc[~held], pdst[~held], n_pad,
+                                             d)
+    pack_s = time.perf_counter() - t0
+    ss = meta["shard_size"]
+    b1, b2 = stacked["bmeta1"], stacked["bmeta2"]
+    padding = ((b2 == 0) & ((b1 & 1) == 0)).sum(axis=1)  # inert pad blocks
+    hs, hd = psrc[held], pdst[held]
+    counts = np.bincount(hd // ss, minlength=d)
+    m = int(counts.max())
+    bsrc = np.full((d, m), n_pad, np.int32)
+    bdst = np.zeros((d, m), np.int32)
+    for i in range(d):
+        sel = hd // ss == i
+        bsrc[i, : counts[i]] = hs[sel]
+        bdst[i, : counts[i]] = hd[sel] - i * ss
+    say(f"[mesh] 10M on {d} shards: n_pad={n_pad} shard={ss} "
+        f"pairs={psrc.size} in_buckets={int(held.sum())} bucket_m={m} "
+        f"blocks_per_shard={meta['n_blocks']} padding_blocks="
+        f"{padding.tolist()} padding_share="
+        f"{padding.sum() / (d * meta['n_blocks']):.4f} "
+        f"host_pack_s={pack_s:.2f}")
+
+    mesh = st.Mesh([dev] * d)
+    flags, recv = padded_nodes(graph, n_pad)
+    operands_ = ([st.put_nodes(mesh, flags), st.put_nodes(mesh, recv)]
+                 + [st.put_stacked(mesh, stacked[k])
+                    for k in ("bmeta1", "bmeta2", "row_pos", "emeta")]
+                 + [st.put_stacked(mesh, bsrc), st.put_stacked(mesh, bdst)])
+    jp = st.put_replicated(mesh, ct.jump_parents(psrc, pdst, n_pad))
+    in_use = (graph["flags"] & F.FLAG_IN_USE) != 0
+    launches = {"propagate": 0, "propagate_gated": 0}
+    for mode in ("push", "auto"):
+        fn = st.make_sharded_cuda_trace(
+            mesh, n_pad, ss, meta["n_blocks"], meta["r_rows"], ct.S_ROWS, m,
+            mode=mode, with_stats=True)
+        args = operands_ + ([jp] if mode == "auto" else [])
+        prop.reset_launches()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        marks, stats = fn(*args)
+        torch.cuda.synchronize()
+        one_ms = (time.perf_counter() - t0) * 1e3
+        got = dict(prop.launches)
+        for form in launches:
+            launches[form] += got[form]
+        check(got["propagate_gated"] == d * stats["n_sweeps"]
+              and got["propagate"] == 0,
+              f"mesh {mode}: launches {got}, not {d} shards x "
+              f"{stats['n_sweeps']} sweeps of the gated form")
+        mark = st.to_host(marks)[:n]
+        check(np.array_equal(mark, single_marks),
+              f"mesh {mode}: {int((mark != single_marks).sum())} marks "
+              f"differ from the single-device trace")
+        check(np.array_equal(in_use & ~mark, graph["expected_garbage"]),
+              f"mesh {mode}: garbage set differs from expected_garbage")
+        reps = []
+        for _ in range(5):
+            t0 = time.perf_counter()
+            fn(*args)
+            torch.cuda.synchronize()
+            reps.append((time.perf_counter() - t0) * 1e3)
+        p50 = float(np.median(reps))
+        say(f"[mesh] mode={mode} shards={d} n_sweeps={stats['n_sweeps']} "
+            f"host_syncs={stats['host_syncs']} "
+            f"launches_per_shard={stats['launches_per_shard']} "
+            f"one_shot_ms={one_ms:.2f} p50_ms={p50:.2f} "
+            f"single_device_p50_ms={single_p50[mode]:.2f} "
+            f"reps_ms={[round(r, 2) for r in reps]} "
+            f"dirty_groups_per_sweep={stats['dirty_chunks']} equal to the "
+            f"single-device marks and expected_garbage")
+
+    # one shard's full walk on its real operands: the global table of the
+    # fixpoint's active words, every walk group dirty, a zero gate
+    halted = np.zeros(n_pad, bool)
+    halted[:n] = (graph["flags"] & F.FLAG_HALTED) != 0
+    active = np.zeros(n_pad, bool)
+    active[:n] = single_marks
+    table = ct.pack_bools(torch.from_numpy(active & ~halted).to(dev), n_pad,
+                          meta["r_rows"])
+    lay = dict(zip(("bmeta1", "bmeta2", "row_pos", "emeta"),
+                   (t[0] for t in operands_[2:6])),
+               n_super=ss // (ct.S_ROWS * ct.LANE), s_rows=ct.S_ROWS,
+               sub=meta["sub"], group=meta["group"],
+               n_blocks=meta["n_blocks"], r_rows=meta["r_rows"])
+    all_dirty = torch.ones(meta["r_rows"] // (ct.ROWS * meta["group"]),
+                           dtype=torch.bool, device=dev)
+    gate = torch.zeros(lay["n_super"], dtype=torch.int32, device=dev)
+    compare(*operands(lay, table, all_dirty, gate), errs,
+            "mesh shard 0 full walk")
+    time_sweep(lay, table, all_dirty, gate,
+               f"mesh shard 0 of {d} @10M full walk", 5)
+    return launches
+
+
+def mesh_churn(dev):
+    """8c: the sharded decremental wake at 1M actors on MESH_SHARDS
+    shards, auto mode: 11 wakes of flag churn, bucket inserts and
+    base-slot masks (tests/test_sharded_trace.py's schedule, scaled; as
+    in phase 5, new refs stay inside a partition and busy flips and
+    messages reach only live actors, so the garbage stays garbage), each
+    equal to trace_marks_np.  Returns the wakes' launches."""
+    rng = np.random.default_rng(8)
+    d, n = MESH_SHARDS, N_CHURN
+    g = powerlaw_actor_graph(n, seed=1, garbage_fraction=0.5)
+    n_live = g["n_live"]
+    n_pad = mesh_geometry(n, d)
+    flags, recv = padded_nodes(g, n_pad)
+    psrc, pdst, _ = IncrementalCudaLayout.pairs_from_graph(
+        g["edge_src"], g["edge_dst"], g["edge_weight"], g["supervisor"])
+    stacked, meta, slot_vals = st.pack_shard_layouts(psrc, pdst, n_pad, d)
+    ss = meta["shard_size"]
+    m = 4096  # bucket columns per shard: room for every wake's inserts
+    bsrc = np.full((d, m), n_pad, np.int32)
+    bdst = np.zeros((d, m), np.int32)
+    bcount = np.zeros(d, np.int64)
+    base_live = np.ones(psrc.size, bool)
+    inserted = set()
+    jp = ct.jump_parents(psrc, pdst, n_pad)
+    mesh = st.Mesh([dev] * d)
+    row_pos = st.put_stacked(mesh, stacked["row_pos"])
+    emeta = st.put_stacked(mesh, stacked["emeta"])
+    mask = st.make_sharded_mask(mesh)
+    wake = st.make_sharded_decremental_wake(
+        mesh, n_pad, ss, meta["n_blocks"], meta["r_rows"], ct.S_ROWS, m,
+        mode="auto")
+    n_words = n_pad // 32
+    state = [np.zeros(n_words, np.int32)] * 5
+
+    def words_of(ids):
+        w = np.zeros(n_words, np.uint32)
+        ids = np.unique(np.asarray(ids, np.int64))
+        np.bitwise_or.at(w, ids >> 5,
+                         np.uint32(1) << (ids & 31).astype(np.uint32))
+        return w.view(np.int32)
+
+    launches = {"propagate": 0, "propagate_gated": 0}
+    for wk in range(11):
+        del_ids, fresh_ids = [], []
+        if wk:
+            k = MESH_CHURN["flags"]
+            idx = rng.choice(n, k, replace=False)
+            live_idx = rng.choice(n_live, k, replace=False)
+            r = rng.random(k)
+            flags[idx[r < 0.3]] |= F.FLAG_HALTED
+            flags[live_idx[(r >= 0.3) & (r < 0.5)]] ^= F.FLAG_BUSY
+            sel = live_idx[(r >= 0.5) & (r < 0.7)]
+            recv[sel] = np.where(recv[sel] != 0, 0, 2)
+            flags[idx[(r >= 0.7) & (r < 0.85)]] = 0  # freed
+            flags[idx[r >= 0.85]] = F.FLAG_IN_USE | F.FLAG_INTERNED
+            new_s = rng.integers(0, n, MESH_CHURN["inserts"])
+            new_d = np.where(new_s < n_live,
+                             rng.integers(0, n_live, new_s.size),
+                             rng.integers(n_live, n, new_s.size))
+            for s_, d_ in zip(new_s.tolist(), new_d.tolist()):
+                sh = int(d_) // ss
+                if bcount[sh] >= m or (s_, d_) in inserted:
+                    continue
+                bsrc[sh, bcount[sh]] = s_
+                bdst[sh, bcount[sh]] = d_ - sh * ss
+                bcount[sh] += 1
+                inserted.add((s_, d_))
+                fresh_ids.append(d_)
+                jp[d_] = min(jp[d_], s_)  # min-fold, as the mesh backend
+            j = rng.choice(np.nonzero(base_live)[0], MESH_CHURN["deletes"],
+                           replace=False)
+            base_live[j] = False
+            hit = jp[pdst[j]] == psrc[j]  # invalidate, as the mesh backend
+            jp[pdst[j][hit]] = n_pad
+            sv = slot_vals[j]
+            per = [sv[(sv >> 40) == i] for i in range(d)]
+            mask(row_pos, emeta, [(p >> 8) & 0xFFFFFFFF for p in per],
+                 [p & 0xFF for p in per])
+            del_ids = pdst[j]
+        ins = np.array(sorted(inserted), np.int64).reshape(-1, 2)
+        want = F.trace_marks_np(
+            flags[:n], recv[:n], np.full(n, -1, np.int32),
+            np.concatenate([psrc[base_live], ins[:, 0]]),
+            np.concatenate([pdst[base_live], ins[:, 1]]),
+            np.ones(int(base_live.sum()) + ins.shape[0], np.int64))
+        prop.reset_launches()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = wake(flags, recv, words_of(del_ids), words_of(fresh_ids),
+                   *state, stacked["bmeta1"], stacked["bmeta2"], row_pos,
+                   emeta, bsrc, bdst, jp)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+        for form in launches:
+            launches[form] += prop.launches[form]
+        state = out[1:]
+        got = st.to_host(out[0])[:n]
+        check(np.array_equal(got, want),
+              f"mesh wake {wk}: {int((got != want).sum())} marks differ "
+              f"from trace_marks_np")
+        say(f"[mesh] churn wake={wk} n={n} shards={d} live={int(want.sum())} "
+            f"wake_ms={ms:.2f} gated_launches={prop.launches['propagate_gated']} "
+            f"equal to trace_marks_np")
+    return launches
+
+
+def mesh_live(errs):
+    """8d: run_tree at 100k actors on the mesh backends, every card of
+    the machine (uigc.crgc.mesh-devices 0).  Returns the launches."""
+    total = {"propagate": 0, "propagate_gated": 0}
+    for label, backend, pipelined, oracle in MESH_LIVE_RUNS:
+        config = {
+            "uigc.crgc.shadow-graph": backend,
+            "uigc.crgc.device": "cuda",
+            "uigc.crgc.mesh-devices": 0,
+            "uigc.crgc.trace-mode": "auto",
+            "uigc.crgc.pipelined": pipelined,
+            "uigc.crgc.wakeup-interval": 10,
+        }
+        launches = live_run(label, run_tree, dict(n_actors=100_000, fanout=8),
+                            config, errs,
+                            mesh_backend.MeshShadowGraph if oracle else None)
+        check(launches["propagate_gated"] > 0,
+              f"live {label}: the gated kernel never launched in the "
+              f"collector")
+        for form, count in launches.items():
+            total[form] += count
+    return total
+
+
+def phase_mesh(graph, single_marks, single_p50, dev, errs):
+    """Phase 8.  Returns the launches per form over its main-path runs
+    (8b-8d, each counted from 0)."""
+    mesh_dryrun(dev)
+    launches = mesh_main(graph, single_marks, single_p50, dev, errs)
+    for part in (mesh_churn(dev), mesh_live(errs)):
+        for form, count in part.items():
+            launches[form] += count
+    say(f"[mesh] launches={launches}")
+    return launches
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; nothing was run",
@@ -926,7 +1273,7 @@ def main():
     kernels = main_layout_timing(lay, table, dev, errs)
 
     prop.reset_launches()
-    push_dirty = phase_main(graph, lay, jp_dev, dev, n_garbage)
+    push_dirty, p50s = phase_main(graph, lay, jp_dev, dev, n_garbage)
     main_launches = dict(prop.launches)
     say(f"[main] launches={main_launches}")
     check(all(v > 0 for v in main_launches.values()),
@@ -934,7 +1281,7 @@ def main():
     sparse_sweep_timing(graph, lay, dev, push_dirty, errs)
     phase_profile(graph, lay, jp_dev, dev)
     elapsed("phases 1-4")
-    del lay, prep, graph, table, jp_dev
+    del lay, prep, table, jp_dev  # the graph and marks stay for phase 8
     torch.cuda.empty_cache()
 
     prop.reset_launches()
@@ -957,12 +1304,19 @@ def main():
     mac_launches = phase_mac(dev)
     elapsed("phase 7")
 
+    torch.cuda.empty_cache()
+    mesh_launches = phase_mesh(graph, marks, p50s, dev, errs)
+    check(mesh_launches["propagate_gated"] > 0,
+          f"the gated kernel never launched on the mesh: {mesh_launches}")
+    elapsed("phase 8")
+
     for form, row in kernels.items():
         row["launches"] = live_launches[form]
         row["launches_by_phase"] = {"trace_10M": main_launches[form],
                                     "churn_1M": churn_launches[form],
                                     "live": live_launches[form],
-                                    "mac": mac_launches[form]}
+                                    "mac": mac_launches[form],
+                                    "mesh": mesh_launches[form]}
         row["max_abs_err"] = errs[form]
     order = ("name", "route", "source", "replaces", "launches",
              "launches_by_phase", "max_abs_err", "ms", "plain_ms", "bound_ms",

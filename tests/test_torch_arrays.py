@@ -115,6 +115,10 @@ class Script:
             else:
                 for g in self.graphs:
                     g.flags[a] |= F.FLAG_HALTED
+            # log the direct writes as a fold does: the mesh backends
+            # upload only the node rows a fold touched
+            for g in self.graphs:
+                g._touch(a)
 
 
 def wake_and_compare(ref, port, monkeypatch, what):

@@ -16,7 +16,7 @@ import numpy as np
 import pytest
 import torch
 
-from uigc_tpu_torch import native
+from uigc_tpu_torch import native, parallel
 from uigc_tpu_torch.models.graphgen import powerlaw_actor_graph
 from uigc_tpu_torch.ops import cuda_decremental, cuda_incremental, cuda_trace
 from uigc_tpu_torch.ops import propagate as prop
@@ -45,7 +45,8 @@ MODULES = ("utils/validation.py", "utils/events.py", "utils/platform.py",
            "native/crgc_shadow.cpp", "models/workloads.py", "ops/scc.py",
            "engines/mac/__init__.py", "engines/mac/engine.py",
            "engines/mac/detector.py", "engines/drl/__init__.py",
-           "engines/drl/engine.py")
+           "engines/drl/engine.py", "parallel/__init__.py",
+           "parallel/sharded_trace.py", "engines/crgc/mesh.py")
 
 
 def imported_roots(path):
@@ -89,6 +90,8 @@ def test_port_imports_with_jax_blocked():
         "import uigc_tpu_torch.engines.drl\n"
         "import uigc_tpu_torch.ops.scc\n"
         "import uigc_tpu_torch.native\n"
+        "import uigc_tpu_torch.parallel\n"
+        "import uigc_tpu_torch.engines.crgc.mesh\n"
         "from uigc_tpu_torch import ActorSystem, ActorTestKit\n"
         "assert 'jax' not in [m.split('.')[0] for m in sys.modules\n"
         "                     if sys.modules[m] is not None]\n"
@@ -118,6 +121,8 @@ def test_entry_points_raise_without_a_card(monkeypatch):
         lambda: cuda_incremental.IncrementalCudaLayout(256),
         lambda: cuda_decremental.DecrementalTracer(256),
         lambda: scc_ops.scc_labels_torch(256, g["edge_src"], g["edge_dst"]),
+        lambda: parallel.build_mesh(1),
+        lambda: parallel.Mesh(["cuda:0"] * 4),
     ]
     for call in calls:
         with pytest.raises(RuntimeError, match="no CUDA device"):

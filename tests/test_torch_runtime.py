@@ -239,8 +239,6 @@ def test_device_backends_raise_without_a_card(backend, monkeypatch):
 @pytest.mark.parametrize("config", [
     {"uigc.telemetry.tracing": True},
     {"uigc.telemetry.device": True},
-    {"uigc.crgc.shadow-graph": "mesh"},
-    {"uigc.crgc.shadow-graph": "mesh-decremental"},
     {"uigc.telemetry.metrics": True},
     {"uigc.analysis.sanitizer": True},
 ], ids=lambda c: "=".join(map(str, next(iter(c.items())))))

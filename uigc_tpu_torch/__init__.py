@@ -13,7 +13,9 @@ the incremental layout ``ops/cuda_incremental.py`` and the decremental
 wake ``ops/cuda_decremental.py``, all over one hand-written propagate
 kernel, ``csrc/propagate.cu``) and the single-node actor runtime with the
 CRGC engine, whose ``device`` and ``decremental`` shadow-graph backends
-trace through that kernel in a live collector.
+trace through that kernel in a live collector, and whose ``mesh`` and
+``mesh-decremental`` backends shard that trace by node range over
+several cards (``parallel/``), the kernel running on every shard.
 
 The public API mirrors ``uigc_tpu``'s, without cluster sharding (not
 ported yet).

@@ -4,8 +4,9 @@ plus two keys: ``uigc.crgc.device``, where the port's ``device`` and
 cycle detector runs its device SCC ("cuda", the default, or "cpu").  They
 are the port's counterpart of ``JAX_PLATFORMS``.  In the port, "device" and
 "decremental" trace on the CUDA card through the hand-written propagate
-kernel (``ops/cuda_incremental.py``, ``ops/cuda_decremental.py``);
-"mesh"/"mesh-decremental" are not ported yet and raise.
+kernel (``ops/cuda_incremental.py``, ``ops/cuda_decremental.py``), and
+"mesh"/"mesh-decremental" run that kernel on every shard of a mesh of
+``uigc.crgc.mesh-devices`` cards (``engines/crgc/mesh.py``).
 
 Configuration system for uigc-tpu.
 
@@ -48,21 +49,26 @@ DEFAULTS: Dict[str, Any] = {
     #   "array"  - dense-array graph folded on host (numpy)
     #   "device" - dense-array graph with the trace run on the TPU via JAX
     #   "native" - C++ data plane (uigc_tpu/native/), batch fold + trace
-    #   "mesh"   - fold/trace state sharded across a jax device mesh
-    #              (engines/crgc/mesh.py); per-wake deltas stream to the
-    #              devices, the trace all_gathers marks over ICI
+    #   "mesh"   - fold/trace state sharded by node range across the
+    #              cards of a mesh (engines/crgc/mesh.py); per-wake deltas
+    #              stream to the shards, each trace sweep runs the
+    #              propagate kernel on every shard and gathers the packed
+    #              mark words onto every card (peer copies over NVLink)
     #   "decremental" - device trace that re-derives only the churn's
     #              affected region per wake from the previous fixpoint
     #              (ops/pallas_decremental.py: suspect closure + repair)
     #   "mesh-decremental" - the mesh backend with the decremental wake
-    #              per shard (one word all_gather per sweep)
+    #              per shard (one word gather per sweep)
     "uigc.crgc.shadow-graph": "array",
-    # Where the "device" and "decremental" backends run their trace: "cuda"
-    # (the card; the backend raises at construction when none is visible)
-    # or "cpu" (the kernels' plain PyTorch versions; tests and CPU users).
-    # The host backends ("oracle", "array", "native") ignore it.
+    # Where the "device", "decremental" and "mesh*" backends run their
+    # trace: "cuda" (the card; the backend raises at construction when
+    # none is visible) or "cpu" (the kernels' plain PyTorch versions;
+    # tests and CPU users).  The host backends ("oracle", "array",
+    # "native") ignore it.
     "uigc.crgc.device": "cuda",
-    # Devices in the mesh backend's mesh; 0 = all visible devices.
+    # Shards of the mesh backends: on "cuda" one per card, cuda:0 ..
+    # cuda:n-1 (0 = every visible card; more than are visible raises);
+    # on "cpu" that many shards on the CPU (0 = one).
     "uigc.crgc.mesh-devices": 0,
     # Propagation strategy for the device-trace fixpoint (the Pallas
     # "device"/"decremental"/"mesh*" backends; ops/pallas_trace.py):

@@ -16,8 +16,10 @@ hand-written propagate kernel.  What differs from the reference:
   ``launch_trace`` returns) and is ready when the CUDA event recorded
   after it has completed (``_WakeHandle``); on the CPU it is always
   ready.
-- ``audit_donation`` and the ``donation_audit`` switch are JAX-only (the
-  mesh backend's donated buffers) and wait for the mesh.
+- ``audit_donation`` and the ``donation_audit`` switch are left out:
+  they watch the reference mesh backend's donated buffers, and the
+  port's mesh updates its shard tensors in place (``mesh.py``).  They
+  belong to device telemetry (ROADMAP.md Queue 1 item 6).
 - ``rebuilds`` counts full layout rebuilds (each capacity growth is a new
   geometry and one of them).
 

@@ -1,8 +1,9 @@
 """Copy of ``uigc_tpu/engines/crgc/engine.py`` (pure Python).  The backend
-table keeps its names: "oracle", "array", "device", "decremental" and
-"native" are built (the device backends on ``uigc.crgc.device``); "mesh",
-"mesh-decremental" and the distributed bookkeeper raise
-``NotImplementedError`` until they are ported.
+table keeps its names: "oracle", "array", "device", "decremental",
+"native", "mesh" and "mesh-decremental" are built (the device and mesh
+backends on ``uigc.crgc.device``, the mesh over ``uigc.crgc.mesh-devices``
+shards); the distributed bookkeeper raises ``NotImplementedError`` until
+it is ported.
 
 The CRGC engine: conflict-replicated garbage collection.
 
@@ -138,10 +139,17 @@ class CRGC(Engine):
 
             return NativeShadowGraph(self.crgc_context, self.system.address)
         elif self.shadow_graph_impl in ("mesh", "mesh-decremental"):
-            raise NotImplementedError(
-                f"uigc.crgc.shadow-graph={self.shadow_graph_impl!r} needs "
-                "the multi-GPU mesh (engines/crgc/mesh.py), which the port "
-                "does not have yet: ROADMAP.md Queue 1 item 5"
+            from .mesh import MeshShadowGraph
+
+            config = self.system.config
+            return MeshShadowGraph(
+                self.crgc_context,
+                self.system.address,
+                n_devices=config.get_int("uigc.crgc.mesh-devices"),
+                decremental=(self.shadow_graph_impl == "mesh-decremental"),
+                trace_mode=config.get_string("uigc.crgc.trace-mode"),
+                pull_density=config.get_float("uigc.crgc.pull-density"),
+                device=config.get_string("uigc.crgc.device"),
             )
         raise ValueError(f"bad shadow-graph impl {self.shadow_graph_impl!r}")
 

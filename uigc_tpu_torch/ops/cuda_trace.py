@@ -341,10 +341,14 @@ def default_geometry() -> tuple:
 
 
 def _parallel_argsort(keys: np.ndarray) -> np.ndarray:
-    """argsort through torch's multi-threaded CPU sort (numpy's is
-    single-threaded and dominates the 50M-pair pack).  Equal keys may land
-    in either order; the packer's placement is valid under any tie-break
-    (the composite key carries every field the placement reads)."""
+    """argsort through torch's multi-threaded CPU sort from 2^20 keys up
+    (numpy's is single-threaded and dominates the 50M-pair pack), numpy's
+    below, as the reference chooses: the two packers then break ties
+    alike and give equal layouts.  Equal keys may land in either order;
+    the packer's placement is valid under any tie-break (the composite
+    key carries every field the placement reads)."""
+    if keys.size < (1 << 20):
+        return np.argsort(keys)
     return torch.from_numpy(np.ascontiguousarray(keys)).argsort().numpy()
 
 
