@@ -81,6 +81,24 @@ Phases, each reported on its own lines:
    actor collected, the gated kernel launched inside the collector, and
    one launch replayed against its plain version.
 
+9. Telemetry and the sanitizer (``[telemetry]`` lines).  (a) Phase 6's
+   100,000-actor tree on "device" (auto) with uigc.telemetry.wake-profile,
+   metrics, device and inspect on (leak watchdog off, no parent capture,
+   so the inspector adds nothing per wake): per-phase wake totals
+   (ingest, fold, trace, sweep, broadcast), the device share and the
+   memory ledger per family.  The hold window and the collection as in
+   phase 6; the kernel launched in the collector; the profiler's device
+   seconds above 0 and within the trace phase's wall time; the ledger's
+   device families above 0 bytes and within
+   torch.cuda.max_memory_allocated(); the Prometheus exposition parses.
+   (b) In the same run, while it is held: why_live for a leaf actor must
+   come out "derived" through marking_parents_torch on the card, its
+   chain equal to the one trace_marks_np_parents gives on the same host
+   arrays.  (c) With uigc.analysis.sanitizer on: a 10,000-actor tree on
+   pipelined "decremental" and 1,000 MAC rings of 10 with cycle
+   detection on the card: no violation, verdicts checked (CRGC) or tap
+   facts checked (MAC, which has no oracle), every actor collected.
+
 Then one JSON line with the kernel table (the full-walk times; launches
 counted on phase 6, the live collector, with every phase's counts beside
 them) and, last, {"ok": true, "device": {...}}.  Any failed check exits
@@ -89,9 +107,11 @@ non-zero before that line; there is no CPU path.
 
 import contextlib
 import json
+import re
 import subprocess
 import sys
 import time
+import types
 
 import numpy as np
 import torch
@@ -107,6 +127,10 @@ from uigc_tpu_torch.ops import trace as trace_ops
 from uigc_tpu_torch.ops.cuda_decremental import DecrementalTracer
 from uigc_tpu_torch.ops.cuda_incremental import EDGE, IncrementalCudaLayout
 from uigc_tpu_torch.parallel import sharded_trace as st
+from uigc_tpu_torch.telemetry import inspect as tel_inspect
+from uigc_tpu_torch.telemetry import (DeviceObservatory, EventMetricsBridge,
+                                      WakeProfiler, prometheus_text)
+from uigc_tpu_torch.utils import events
 from uigc_tpu_torch.utils.platform import require_hopper
 
 F = trace_ops
@@ -153,6 +177,11 @@ MESH_LIVE_RUNS = (
     ("tree100k/mesh/auto", "mesh", False, True),
     ("tree100k/mesh-decremental/pipelined", "mesh-decremental", True, False),
 )
+#: phase 9: the profiled tree (phase 6's), the sanitized runs (cut so the
+#: sanitizer's Python oracle keeps up)
+TELEMETRY_TREE = dict(n_actors=100_000, fanout=8)
+SANITIZED_TREE = dict(n_actors=10_000, fanout=8)
+SANITIZED_RINGS = dict(n_rings=1_000, ring_size=10)
 KERNEL_SOURCE = "uigc_tpu_torch/csrc/propagate.cu"
 REPLACES = "uigc_tpu/ops/pallas_trace.py:983"
 
@@ -1231,6 +1260,312 @@ def phase_mesh(graph, single_marks, single_p50, dev, errs):
     return launches
 
 
+# --------------------------------------------------------------------- #
+# 9. telemetry and the sanitizer
+# --------------------------------------------------------------------- #
+
+#: one Prometheus sample line: name, optional labels, value
+PROM_SAMPLE = re.compile(
+    r'^[a-zA-Z_:][a-zA-Z0-9_:]*(\{[^}]*\})? '
+    r'(-?[0-9.]+(e[+-]?[0-9]+)?|[+-]Inf|NaN)$')
+
+
+class DeviceTraceLog:
+    """Every ``tpu.device_trace`` duration of a run (the profiler keeps
+    only its newest 256 wake records): how the trace phase's device
+    seconds split between the few long wakes and the rest."""
+
+    def __init__(self):
+        self.durations = []
+
+    def __call__(self, name, fields):
+        if name == events.DEVICE_TRACE:
+            self.durations.append(float(fields.get("duration_s") or 0.0))
+
+    def __enter__(self):
+        events.recorder.add_listener(self)
+        return self
+
+    def __exit__(self, *exc):
+        events.recorder.remove_listener(self)
+
+
+class HookClock:
+    """Calls of, and thread CPU seconds inside, the telemetry hooks of a
+    run: the per-wake ledger sample on the collector thread and the
+    recorder listeners on every committing thread (the timers' own cost
+    included).  CPU time, not wall time: a listener preempted for the
+    interpreter lock would count the other threads' work.  What the
+    instrumentation costs when it is on."""
+
+    HOOKS = ((DeviceObservatory, "on_wake"), (DeviceObservatory, "__call__"),
+             (EventMetricsBridge, "__call__"), (WakeProfiler, "__call__"))
+
+    def __init__(self):
+        self.calls = {}
+        self.seconds = {}
+        self._plain = {}
+
+    def __enter__(self):
+        for cls, name in self.HOOKS:
+            key = f"{cls.__name__}.{name}"
+            plain = self._plain[key] = getattr(cls, name)
+            self.calls[key], self.seconds[key] = 0, 0.0
+
+            def timed(obj, *args, _plain=plain, _key=key, **kw):
+                t0 = time.thread_time()
+                try:
+                    return _plain(obj, *args, **kw)
+                finally:
+                    self.calls[_key] += 1  # GIL-atomic enough for a tally
+                    self.seconds[_key] += time.thread_time() - t0
+
+            setattr(cls, name, timed)
+        return self
+
+    def __exit__(self, *exc):
+        for cls, name in self.HOOKS:
+            setattr(cls, name, self._plain[f"{cls.__name__}.{name}"])
+
+
+class ParentsSpy:
+    """Counts the why-live derivations (marking_parents_torch calls) and
+    the devices they ran on."""
+
+    def __init__(self):
+        self.devices = []
+        self._plain = ct.marking_parents_torch
+
+    def __enter__(self):
+        def spied(*args, device=None):
+            self.devices.append(str(device))
+            return self._plain(*args, device=device)
+
+        ct.marking_parents_torch = spied
+        return self
+
+    def __exit__(self, *exc):
+        ct.marking_parents_torch = self._plain
+
+
+def why_live_probe(system):
+    """9b, while the tree is held: why_live for the deepest actor (a
+    leaf), through the inspector, then the same chain from the numpy
+    parents on the same host arrays."""
+    insp = system.telemetry.inspector
+    graph = system.engine.bookkeeper.shadow_graph
+    snap = insp.snapshot()
+    leaf = max(snap["actors"].values(),
+               key=lambda rec: (rec["name"].count("/"), rec["key"]))["key"]
+    with ParentsSpy() as spy:
+        result = insp.why_live(leaf)
+    host = types.SimpleNamespace(**vars(graph))
+    host.use_device, host.last_parents = False, None
+    want = tel_inspect.why_live_from_parents(host, snap, leaf)
+    return {"result": result, "numpy": want, "devices": spy.devices,
+            "problems": tel_inspect.validate_why_live(snap, result)}
+
+
+def telemetry_probe(system, stage):
+    tel = system.telemetry
+    out = {"profile": tel.profiler.to_json(),
+           "doc": tel.observatory.to_doc(),
+           "text": prometheus_text(tel.registry),
+           "max_alloc": torch.cuda.max_memory_allocated()}
+    if stage == "held":
+        out["why_live"] = why_live_probe(system)
+    return out
+
+
+def profiled_run(device):
+    """9a and 9b.  Returns the run's launches."""
+    label = f"tree{TELEMETRY_TREE['n_actors'] // 1000}k/device/auto/profiled"
+    config = {"uigc.crgc.shadow-graph": "device", "uigc.crgc.device": device,
+              "uigc.crgc.trace-mode": "auto", "uigc.crgc.wakeup-interval": 10,
+              "uigc.telemetry.wake-profile": True,
+              "uigc.telemetry.metrics": True, "uigc.telemetry.device": True,
+              "uigc.telemetry.inspect": True,
+              "uigc.telemetry.leak-waves": 0}
+    if device == "cuda":
+        torch.cuda.reset_peak_memory_stats()  # the ledger's bound: this run
+    prop.reset_launches()
+    try:
+        with DeviceTraceLog() as traces, HookClock() as hooks:
+            r = run_tree(config=config, timeout_s=LIVE_TIMEOUT_S,
+                         hold_wakes=HOLD_WAKES, probe=telemetry_probe,
+                         **TELEMETRY_TREE)
+    except (AssertionError, RuntimeError) as exc:
+        raise SmokeFailure(f"telemetry {label}: {exc}") from exc
+    launches = dict(prop.launches)
+    n = r["n_collected"]
+    check(r["held_wakes"] >= HOLD_WAKES,
+          f"telemetry {label}: held {r['held_wakes']} wakes")
+    check(sum(launches.values()) > 0,
+          f"telemetry {label}: the kernel never launched in the collector")
+    say(f"[telemetry] {label} actors={n} build_s={r['build_s']:.3f} "
+        f"collect_s={r['collect_s']:.3f} "
+        f"collected_per_s={n / r['collect_s']:.1f} "
+        f"held_wakes={r['held_wakes']} wakes={r['wakes']} "
+        f"rebuilds={r['rebuilds']} capacity={r['capacity']} "
+        f"launches={launches}")
+
+    got = r["probe"]["collected"]
+    prof = got["profile"]
+    phases = prof["phases"]
+    device_s = phases["trace"]["device_total_s"]
+    check(device_s > 0, f"telemetry {label}: the profiler saw no device time")
+    check(device_s <= phases["trace"]["total_s"],
+          f"telemetry {label}: device {device_s:.6f} s is above the trace "
+          f"phase's {phases['trace']['total_s']:.6f} s")
+    say(f"[telemetry] {label} wake profile: wakes={prof['wakes']} "
+        f"wall_total_s={prof['wall_total_s']:.6f} "
+        f"wall_max_s={prof['wall_max_s']:.6f} "
+        f"entries={prof['entries_total']} garbage={prof['garbage_total']}")
+    for name in ("ingest", "fold", "trace", "sweep", "broadcast"):
+        ph = phases[name]
+        say(f"[telemetry] {label} phase {name}: total_s={ph['total_s']:.6f} "
+            f"max_s={ph['max_s']:.6f} "
+            f"device_total_s={ph['device_total_s']:.6f}")
+    say(f"[telemetry] {label} device share: device_s={device_s:.6f} of "
+        f"wall_total_s={prof['wall_total_s']:.6f} "
+        f"({device_s / prof['wall_total_s']:.4f}); of the trace phase "
+        f"{device_s / phases['trace']['total_s']:.4f}")
+    say(f"[telemetry] {label} collect split: wake wall "
+        f"{prof['wall_total_s']:.3f} s of build+hold+collect; collect_s "
+        f"{r['collect_s']:.3f}")
+    say(f"[telemetry] {label} hooks: " + "; ".join(
+        f"{key} calls={hooks.calls[key]} cpu_s={hooks.seconds[key]:.6f}"
+        for key in hooks.calls))
+    # every device trace of the run: the longest (one per layout rebuild,
+    # and one more) against the rest
+    dev = sorted(traces.durations, reverse=True)
+    check(dev, f"telemetry {label}: no device trace was committed")
+    k = r["rebuilds"] + 1
+    rest = dev[k:] or [0.0]
+    say(f"[telemetry] {label} device traces: n={len(dev)} "
+        f"sum_s={sum(dev):.6f} longest {k} sum_s={sum(dev[:k]):.6f} "
+        f"({sum(dev[:k]) / sum(dev):.4f}) each={[round(d, 4) for d in dev[:k]]}"
+        f"; the other {len(dev) - k}: sum_s={sum(dev[k:]):.6f} "
+        f"p50_s={float(np.median(rest)):.6f} "
+        f"p90_s={float(np.percentile(rest, 90)):.6f} max_s={rest[0]:.6f}; "
+        f"sweeps per traced wake (newest records) "
+        f"{sorted({w.get('n_sweeps', 0) for w in prof['recent'] if w['device_s']})}")
+
+    held = r["probe"]["held"]
+    ledger = held["doc"]["ledger"]
+    for fam, tally in sorted(ledger["families"].items()):
+        say(f"[telemetry] {label} ledger {fam}: host={tally['host']} "
+            f"device={tally['device']} items={tally['items']} "
+            f"peak={ledger['peaks'].get(fam, 0)}")
+    device_bytes = ledger["device_bytes"]
+    check(device_bytes > 0,
+          f"telemetry {label}: the ledger's device families read 0 bytes")
+    check(device_bytes <= held["max_alloc"],
+          f"telemetry {label}: ledger device bytes {device_bytes} above "
+          f"max_memory_allocated {held['max_alloc']}")
+    builds = held["doc"]["compile"]["kernel_build"]
+    say(f"[telemetry] {label} ledger device_bytes={device_bytes} "
+        f"total_bytes={ledger['total_bytes']} "
+        f"max_memory_allocated={held['max_alloc']} compile_entries="
+        f"{len(held['doc']['compile']['entries'])} kernel_build={builds} "
+        f"host_transfers={held['doc']['transfers']['total_count']} "
+        f"donation_copies={held['doc']['donation']['copies_total']}")
+
+    lines = got["text"].splitlines()
+    bad = [ln for ln in lines if not ln.startswith("#")
+           and not PROM_SAMPLE.match(ln)]
+    check(not bad, f"telemetry {label}: unparsable exposition lines {bad[:3]}")
+    check(any(ln.startswith("uigc_wake_phase_seconds_count") for ln in lines),
+          f"telemetry {label}: no wake-phase histogram in the exposition")
+    say(f"[telemetry] {label} exposition: {len(lines)} lines parse, "
+        f"{sum(not ln.startswith('#') for ln in lines)} samples")
+
+    wl = held["why_live"]
+    res, want = wl["result"], wl["numpy"]
+    check(res.get("verdict") == "live" and res.get("parents") == "derived",
+          f"telemetry {label}: why-live came out {res.get('verdict')}/"
+          f"{res.get('parents')}, not live/derived")
+    check(wl["devices"] and all(d.startswith(device) for d in wl["devices"]),
+          f"telemetry {label}: the derivation ran on {wl['devices']}, "
+          f"not {device}")
+    check(want is not None and res["chain"] == want["chain"],
+          f"telemetry {label}: why-live chain differs from the numpy "
+          f"parents' chain")
+    check(not wl["problems"], f"telemetry {label}: why-live {wl['problems']}")
+    say(f"[telemetry] {label} why-live {res['actor']} ({res['name']}): "
+        f"parents=derived on {wl['devices'][0]}, chain of "
+        f"{len(res['chain'])} equal to trace_marks_np_parents'; "
+        f"pseudoroot {res['pseudoroot_name']} ({res['root_reasons']})")
+    return launches
+
+
+def sanitizer_probe(system, stage):
+    san = system.sanitizer
+    if stage == "collected":
+        san.check_quiescent()
+    return san.report()
+
+
+def sanitized_runs(device):
+    """9c.  Returns the launches of the CRGC run."""
+    runs = (
+        (f"tree{SANITIZED_TREE['n_actors'] // 1000}k/decremental/pipelined"
+         f"/sanitized", run_tree, SANITIZED_TREE,
+         {"uigc.crgc.shadow-graph": "decremental",
+          "uigc.crgc.device": device, "uigc.crgc.pipelined": True,
+          "uigc.crgc.wakeup-interval": 10}),
+        (f"rings{SANITIZED_RINGS['n_rings']}x{SANITIZED_RINGS['ring_size']}"
+         f"/mac/sanitized", run_rings, SANITIZED_RINGS,
+         {"uigc.engine": "mac", "uigc.mac.cycle-detection": True,
+          "uigc.mac.wakeup-interval": 10, "uigc.mac.device": device}),
+    )
+    launches = {"propagate": 0, "propagate_gated": 0}
+    for label, workload, args, config in runs:
+        config = dict(config, **{"uigc.analysis.sanitizer": True})
+        prop.reset_launches()
+        try:
+            r = workload(config=config, timeout_s=LIVE_TIMEOUT_S,
+                         hold_wakes=HOLD_WAKES, probe=sanitizer_probe, **args)
+        except (AssertionError, RuntimeError) as exc:
+            raise SmokeFailure(f"telemetry {label}: {exc}") from exc
+        for form, count in prop.launches.items():
+            launches[form] += count
+        rep = r["probe"]["collected"]
+        mac = config.get("uigc.engine") == "mac"
+        checked = rep["tap"]["recvs"] if mac else rep["checks"]
+        check(r["held_wakes"] >= HOLD_WAKES,
+              f"telemetry {label}: held {r['held_wakes']} wakes")
+        check(not rep["violations"],
+              f"telemetry {label}: sanitizer violations {rep['by_rule']}: "
+              f"{rep['violations'][:3]}")
+        check(checked > 0, f"telemetry {label}: nothing was checked")
+        if mac:
+            check(r["total_cycles_collected"] == SANITIZED_RINGS["n_rings"],
+                  f"telemetry {label}: {r['total_cycles_collected']} cycles")
+        else:
+            check(sum(prop.launches.values()) > 0,
+                  f"telemetry {label}: the kernel never launched")
+        n = r["n_collected"]
+        what = ("tap facts checked (MAC has no oracle: receives against "
+                "sends)" if mac else "collector verdicts checked against "
+                "the oracle")
+        say(f"[telemetry] {label} actors={n} build_s={r['build_s']:.3f} "
+            f"collect_s={r['collect_s']:.3f} held_wakes={r['held_wakes']} "
+            f"violations=0 {what}={checked} tap={rep['tap']} "
+            f"oracle_population={rep['oracle_population']} "
+            f"launches={dict(prop.launches)}")
+    return launches
+
+
+def phase_telemetry(device="cuda"):
+    """Phase 9.  Returns the launches per form over its runs."""
+    launches = profiled_run(device)
+    for form, count in sanitized_runs(device).items():
+        launches[form] += count
+    say(f"[telemetry] launches={launches}")
+    return launches
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; nothing was run",
@@ -1310,13 +1645,20 @@ def main():
           f"the gated kernel never launched on the mesh: {mesh_launches}")
     elapsed("phase 8")
 
+    torch.cuda.empty_cache()
+    telemetry_launches = phase_telemetry()
+    check(telemetry_launches["propagate_gated"] > 0,
+          f"the gated kernel never launched in phase 9: {telemetry_launches}")
+    elapsed("phase 9")
+
     for form, row in kernels.items():
         row["launches"] = live_launches[form]
         row["launches_by_phase"] = {"trace_10M": main_launches[form],
                                     "churn_1M": churn_launches[form],
                                     "live": live_launches[form],
                                     "mac": mac_launches[form],
-                                    "mesh": mesh_launches[form]}
+                                    "mesh": mesh_launches[form],
+                                    "telemetry": telemetry_launches[form]}
         row["max_abs_err"] = errs[form]
     order = ("name", "route", "source", "replaces", "launches",
              "launches_by_phase", "max_abs_err", "ms", "plain_ms", "bound_ms",

@@ -46,7 +46,13 @@ MODULES = ("utils/validation.py", "utils/events.py", "utils/platform.py",
            "engines/mac/__init__.py", "engines/mac/engine.py",
            "engines/mac/detector.py", "engines/drl/__init__.py",
            "engines/drl/engine.py", "parallel/__init__.py",
-           "parallel/sharded_trace.py", "engines/crgc/mesh.py")
+           "parallel/sharded_trace.py", "engines/crgc/mesh.py",
+           "analysis/__init__.py", "analysis/race.py", "analysis/sanitizer.py",
+           "telemetry/__init__.py", "telemetry/metrics.py",
+           "telemetry/profile.py", "telemetry/tracing.py",
+           "telemetry/exporter.py", "telemetry/timeseries.py",
+           "telemetry/alerts.py", "telemetry/device.py",
+           "telemetry/inspect.py")
 
 
 def imported_roots(path):
@@ -92,6 +98,8 @@ def test_port_imports_with_jax_blocked():
         "import uigc_tpu_torch.native\n"
         "import uigc_tpu_torch.parallel\n"
         "import uigc_tpu_torch.engines.crgc.mesh\n"
+        "import uigc_tpu_torch.analysis\n"
+        "import uigc_tpu_torch.telemetry\n"
         "from uigc_tpu_torch import ActorSystem, ActorTestKit\n"
         "assert 'jax' not in [m.split('.')[0] for m in sys.modules\n"
         "                     if sys.modules[m] is not None]\n"

@@ -242,9 +242,22 @@ def test_device_backends_raise_without_a_card(backend, monkeypatch):
     {"uigc.telemetry.metrics": True},
     {"uigc.analysis.sanitizer": True},
 ], ids=lambda c: "=".join(map(str, next(iter(c.items())))))
-def test_unported_parts_raise_not_implemented(config):
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        ActorSystem(None, name="unported", config=dict(CPU, **config))
+def test_sanitizer_and_telemetry_keys_attach(config):
+    """The keys the port once refused attach their part, and terminate()
+    closes telemetry."""
+    system = ActorSystem(None, name="attached", config=dict(CPU, **config))
+    sanitized = "uigc.analysis.sanitizer" in config
+    try:
+        if sanitized:
+            assert system.sanitizer.oracle is not None  # CRGC's mirror
+        else:
+            assert system.telemetry is not None
+    finally:
+        system.terminate()
+    if sanitized:
+        assert system.sanitizer.violations == []
+    else:
+        assert system.telemetry._listeners == []  # closed
 
 
 def test_host_backends_ignore_the_device_key(monkeypatch):

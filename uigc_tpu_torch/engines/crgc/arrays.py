@@ -16,10 +16,13 @@ hand-written propagate kernel.  What differs from the reference:
   ``launch_trace`` returns) and is ready when the CUDA event recorded
   after it has completed (``_WakeHandle``); on the CPU it is always
   ready.
-- ``audit_donation`` and the ``donation_audit`` switch are left out:
-  they watch the reference mesh backend's donated buffers, and the
-  port's mesh updates its shard tensors in place (``mesh.py``).  They
-  belong to device telemetry (ROADMAP.md Queue 1 item 6).
+- ``audit_donation`` keeps its name and its ``tpu.donation_copy``
+  event, with the torch meaning: the port's mesh updates its shard
+  tensors in place (``mesh.py``) where the reference donates buffers, so
+  the audit reads each tensor's ``data_ptr()`` before the update and
+  commits the event when the update left the tensor on new storage (a
+  silent copy, the reference's bug class).  The ``donation_audit``
+  switch is the reference's, set by the device observatory's attach.
 - ``rebuilds`` counts full layout rebuilds (each capacity growth is a new
   geometry and one of them).
 
@@ -90,6 +93,34 @@ def _readback(value, site: str) -> np.ndarray:
             events.HOST_TRANSFER, site=site, bytes=int(out.nbytes)
         )
     return out
+
+
+def storage_ptrs(bufs) -> list:
+    """``data_ptr()`` of every tensor in ``bufs`` (None for anything
+    else): what :func:`audit_donation` compares after the update."""
+    return [b.data_ptr() if isinstance(b, torch.Tensor) else None
+            for b in bufs]
+
+
+def audit_donation(site: str, before: list, *bufs) -> None:
+    """After an update in place of device state: every tensor in
+    ``bufs`` must still live where ``before`` (:func:`storage_ptrs`,
+    read before the update) says it lived.  One that moved means the
+    update allocated new storage and copied, instead of writing in place
+    — the wake pays a second copy of that state at that site every time
+    — committed as ``tpu.donation_copy`` (the device observatory's
+    donation-audit plane)."""
+    if not events.recorder.enabled:
+        return
+    for ptr, buf in zip(before, bufs):
+        if ptr is None or not isinstance(buf, torch.Tensor):
+            continue
+        if buf.data_ptr() != ptr:
+            events.recorder.commit(
+                events.DONATION_COPY,
+                site=site,
+                bytes=buf.nelement() * buf.element_size(),
+            )
 
 
 class _WakeHandle:
@@ -174,6 +205,12 @@ class ArrayShadowGraph:
         #: never frees a slot the chain names.
         self.last_parents: Optional[np.ndarray] = None
         self.last_parents_mark: Optional[np.ndarray] = None
+        #: audit the device state's updates in place and commit
+        #: ``tpu.donation_copy`` when one moved a tensor to new storage
+        #: (see audit_donation).  Enabled by the device observatory's
+        #: attach (telemetry.Telemetry); off, the updating sites pay
+        #: one bool check.
+        self.donation_audit = False
         #: accumulated per-edge send matrix: packed (src << 32 | dst)
         #: slot key -> messages sent since enablement.  None (default)
         #: = off; the liveness inspector's attach enables it by

@@ -12,8 +12,9 @@ devices (``parallel/sharded_trace.py``), held against the reference by
   batches are built exactly, with no padding to power-of-two sizes: the
   port compiles nothing per shape, so the reference's padding, its
   program caches (``_SHARED_PROGRAM_CACHE``, ``_HELPER_CACHE``,
-  ``_jit``) and their ``COMPILE`` events are gone, and so is the cached
-  zero word array.
+  ``_jit``) and their ``COMPILE`` events are gone (a path with no
+  geometry-keyed cache commits none: the rule in telemetry/device.py),
+  and so is the cached zero word array.
 - There is no collective lock.  The reference serializes its
   all_gather-bearing programs process-wide because two XLA collectives
   interleaved on one device set can deadlock; a wake here is host code
@@ -22,8 +23,10 @@ devices (``parallel/sharded_trace.py``), held against the reference by
 - A pipelined wake is ready when the CUDA event recorded after it on
   each of the mesh's cards has completed (always ready on the CPU), as
   the port's ``_WakeHandle`` is.
-- ``audit_donation`` and the ``donation_audit`` switch belong to device
-  telemetry (ROADMAP.md Queue 1 item 6): nothing is donated here.
+- The reference audits its three donating sites (``mesh.jump``,
+  ``mesh.pairs``, ``mesh.fold``).  Here the same three sites update
+  their tensors in place, and ``audit_donation`` (``arrays.py``) commits
+  ``tpu.donation_copy`` when an update left a tensor on new storage.
 - Full rebuilds are counted on the base's ``rebuilds``.
 
 Mesh shadow-graph backend: the collector's data plane sharded over a
@@ -62,7 +65,8 @@ from ...ops.cuda_incremental import IncrementalCudaLayout
 from ...ops.slotmap import PackedSlotMap, fold_log, pack_keys, unpack_keys
 from ...parallel import sharded_trace
 from ...utils import events
-from .arrays import ArrayShadowGraph, _readback
+from .arrays import (ArrayShadowGraph, _readback, audit_donation,
+                     storage_ptrs)
 from .state import CrgcContext
 
 
@@ -394,8 +398,12 @@ class MeshShadowGraph(ArrayShadowGraph):
             self._jump_writes = {}
             idx = torch.from_numpy(np.fromiter(w.keys(), np.int64, len(w)))
             vals = torch.from_numpy(np.fromiter(w.values(), np.int32, len(w)))
+            before = (storage_ptrs(self._jump_dev) if self.donation_audit
+                      else None)
             for jp in self._jump_dev:
                 jp[idx.to(jp.device)] = vals.to(jp.device)
+            if before is not None:
+                audit_donation("mesh.jump", before, *self._jump_dev)
 
     def _sync_device(self) -> None:
         if (
@@ -417,6 +425,8 @@ class MeshShadowGraph(ArrayShadowGraph):
             # insert-bucket columns: per-shard in-place writes
             w = np.array([k + v for k, v in pair_writes], dtype=np.int64)
             per_shard = _by_shard(w[:, 0], D, w[:, 1], w[:, 2], w[:, 3])
+            before = (storage_ptrs(self._dev_psrc + self._dev_pdst)
+                      if self.donation_audit else None)
             for i, (c, s, d) in enumerate(per_shard):
                 if c.size:
                     dev = self._dev_psrc[i].device
@@ -425,6 +435,9 @@ class MeshShadowGraph(ArrayShadowGraph):
                         s.astype(np.int32)).to(dev)
                     self._dev_pdst[i][c] = torch.from_numpy(
                         d.astype(np.int32)).to(dev)
+            if before is not None:
+                audit_donation("mesh.pairs", before,
+                               *self._dev_psrc, *self._dev_pdst)
 
         if self._mask_writes:
             # base-layout deletions: per-shard in-place masking
@@ -457,8 +470,14 @@ class MeshShadowGraph(ArrayShadowGraph):
                 ~new_flags,
             )
             self._recv_synced[slots_arr] = new_recv
-            self._fold_fn(self._dev_flags, self._dev_recv,
-                          *([p[k] for p in per_shard] for k in range(4)))
+            before = (storage_ptrs(self._dev_flags + self._dev_recv)
+                      if self.donation_audit else None)
+            self._dev_flags, self._dev_recv = self._fold_fn(
+                self._dev_flags, self._dev_recv,
+                *([p[k] for p in per_shard] for k in range(4)))
+            if before is not None:
+                audit_donation("mesh.fold", before,
+                               *self._dev_flags, *self._dev_recv)
 
         self._sync_jump_mirror()
 

@@ -1,6 +1,4 @@
-"""Copy of ``uigc_tpu/engines/mac/engine.py`` (pure Python).  The telemetry
-tracer branch stays: ``system.telemetry`` is ``None`` in the port until
-the telemetry package is ported.
+"""Copy of ``uigc_tpu/engines/mac/engine.py`` (pure Python).
 
 The MAC engine: Pony-style weighted reference counting.
 

@@ -7,7 +7,10 @@ wakes before the release and fails if any actor stopped in that window
 collector's counts (``_collector_stats``).  A collector wake is a CRGC
 Bookkeeper wake or, for MAC with cycle detection, a detector scan; an
 engine with no collector is held for that many wakeup intervals on the
-host clock.
+host clock.  ``probe(system, stage)``, when given, is called while the
+topology is held (stage ``"held"``, after the hold and before the
+release) and once every actor is collected (``"collected"``, before the
+system terminates); what it returns is the result's ``probe[stage]``.
 
 Live-runtime benchmark workloads (BASELINE configs 1-4).
 
@@ -173,6 +176,7 @@ def run_tree(
     config: Optional[Dict[str, Any]] = None,
     timeout_s: float = 300.0,
     hold_wakes: int = 0,
+    probe: Optional[Callable[[ActorSystem, str], Any]] = None,
 ) -> Dict[str, Any]:
     """Configs 1-2: an acyclic ownership tree of ``n_actors`` is released
     by the root and must be fully collected.
@@ -212,15 +216,18 @@ def run_tree(
         build_s = time.perf_counter() - t0
 
         held = _hold(system, latch, n_actors, hold_wakes, timeout_s)
+        probed = {"held": probe(system, "held")} if probe else {}
 
         t0 = time.perf_counter()
         root.tell(_Release())
         left = latch.await_zero(timeout_s)
         collect_s = time.perf_counter() - t0
         assert left == 0, f"{left} actors never collected"
+        if probe:
+            probed["collected"] = probe(system, "collected")
         return {"n_collected": n_actors, "build_s": build_s,
                 "collect_s": collect_s, "held_wakes": held,
-                **_collector_stats(system)}
+                **_collector_stats(system), "probe": probed}
     finally:
         system.terminate()
 
@@ -231,6 +238,7 @@ def run_rings(
     config: Optional[Dict[str, Any]] = None,
     timeout_s: float = 300.0,
     hold_wakes: int = 0,
+    probe: Optional[Callable[[ActorSystem, str], Any]] = None,
 ) -> Dict[str, Any]:
     """Config 3: mutually-referencing actor rings — cyclic garbage that a
     trace-based engine must collect after the root releases the heads."""
@@ -281,14 +289,17 @@ def run_rings(
         build_s = time.perf_counter() - t0
 
         held = _hold(system, latch, n_actors, hold_wakes, timeout_s)
+        probed = {"held": probe(system, "held")} if probe else {}
 
         t0 = time.perf_counter()
         root.tell(_Release())
         left = latch.await_zero(timeout_s)
         collect_s = time.perf_counter() - t0
         assert left == 0, f"{left} ring members never collected"
+        if probe:
+            probed["collected"] = probe(system, "collected")
         return {"n_collected": n_actors, "build_s": build_s,
                 "collect_s": collect_s, "held_wakes": held,
-                **_collector_stats(system)}
+                **_collector_stats(system), "probe": probed}
     finally:
         system.terminate()

@@ -1,6 +1,8 @@
 """Copy of ``uigc_tpu/native/__init__.py`` (pure Python), building into
 the port's ``native/build/`` (listed in ``.gitignore``) under a temporary
-name unique per process and thread.
+name unique per process and thread, and noting the build's seconds in
+``utils/platform.py``'s build log (read by the device observatory,
+``telemetry/device.py``).
 
 Native (C++) data-plane bindings.
 
@@ -17,7 +19,10 @@ import ctypes
 import os
 import subprocess
 import threading
+import time
 from typing import Optional
+
+from ..utils import platform
 
 _HERE = os.path.dirname(os.path.abspath(__file__))
 _SRC = os.path.join(_HERE, "crgc_shadow.cpp")
@@ -43,12 +48,14 @@ def _build() -> None:
     tmp = f"{_LIB}.{os.getpid()}.{threading.get_ident()}.tmp"
     cmd = ["g++", "-O2", "-std=c++17", "-shared", "-fPIC", _SRC, "-o", tmp]
     try:
+        t0 = time.perf_counter()
         proc = subprocess.run(cmd, capture_output=True, text=True)
         if proc.returncode != 0:
             raise RuntimeError(
                 f"g++ failed (exit {proc.returncode}): {proc.stderr.strip()}"
             )
         os.replace(tmp, _LIB)
+        platform.record_build("g++:crgc_shadow", time.perf_counter() - t0)
     finally:
         if os.path.exists(tmp):
             os.unlink(tmp)

@@ -234,8 +234,9 @@ def _build_wake_fn(
 
 def get_wake_fn(n, specs, n_super, r_rows, s_rows, mode=pt.MODE_PUSH,
                 pull_density=pt.DEFAULT_PULL_DENSITY, with_stats=False):
-    """Cached wake fn; commits the reference's COMPILE events (tag
-    ``dec_wake``)."""
+    """Cached wake fn.  Keyed by layout geometry, so every lookup commits
+    a ``tpu.compile`` hit or miss (tag ``dec_wake``), by the rule in
+    telemetry/device.py."""
     key = (n, tuple(specs), n_super, r_rows, s_rows, mode, pull_density,
            with_stats)
     fn = _fn_cache.get(key)

@@ -936,10 +936,12 @@ def get_trace_fn_multi(
 ):
     """Cached trace fn over one or more pair layouts (operands per layout
     in ``device_args`` order, after flags/recv — and, for jump/auto
-    modes, after the jump-parent operand).  Commits the reference's
-    COMPILE events (tag ``trace_fn``) so the compile-cache plane reads
-    the same; building a fn here compiles nothing (the kernel library is
-    built once, on first launch)."""
+    modes, after the jump-parent operand).  The cache is keyed by layout
+    geometry, so every lookup commits a ``tpu.compile`` hit or miss (tag
+    ``trace_fn``): a miss is a new geometry, the churn the
+    ``recompile_storm`` alert reads (the rule in telemetry/device.py).
+    Building a fn here compiles nothing; the kernel library is built
+    once, on first launch."""
     key = (n, tuple(specs), n_super, r_rows, s_rows, mode, pull_density,
            with_stats)
     fn = _fn_cache.get(key)

@@ -47,6 +47,8 @@ from pathlib import Path
 import numpy as np
 import torch
 
+from ..utils import platform
+
 # Kernel ABI of the packed layout (shared with ops/cuda_trace.py's packer).
 LANE = 128  # slots per layout row; lanes of the word table
 ROWS = 8  # slot row class = source table row mod 8
@@ -123,6 +125,7 @@ def _build_locked() -> Path:
     os.replace(tmp, lib_path)  # atomic: a concurrent loader sees all or nothing
     build_info.update(path=str(lib_path), seconds=seconds, cached=False,
                       ptxas=ptxas)
+    platform.record_build("nvcc:propagate", seconds)
     return lib_path
 
 

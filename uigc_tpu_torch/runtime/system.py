@@ -1,6 +1,7 @@
-"""Copy of ``uigc_tpu/runtime/system.py`` (pure Python); the sanitizer and
-telemetry keys raise ``NotImplementedError`` until those packages are
-ported.
+"""Copy of ``uigc_tpu/runtime/system.py`` (pure Python).  What differs
+from the reference: an engine or backend the port cannot build raises
+after the dispatcher and timers are stopped, so a refused system leaves
+nothing running.
 
 The actor system: spawning, guardians, engine extension, shutdown.
 
@@ -50,31 +51,6 @@ class RawRef:
         return f"RawRef({self.cell.path})"
 
 
-def _refuse_unported(config: Config) -> None:
-    """Raise for the config-driven attachments the port does not have yet
-    (the reference attaches the sanitizer and the telemetry package
-    here), before any of the system's threads start."""
-    if config.get_bool("uigc.analysis.sanitizer"):
-        raise NotImplementedError(
-            "uigc.analysis.sanitizer needs analysis/sanitizer.py, which the "
-            "port does not have yet: ROADMAP.md Queue 1 item 10"
-        )
-    if (
-        config.get_bool("uigc.telemetry.metrics")
-        or config.get_bool("uigc.telemetry.tracing")
-        or config.get_bool("uigc.telemetry.wake-profile")
-        or config.get_bool("uigc.telemetry.inspect")
-        or config.get_bool("uigc.telemetry.timeseries")
-        or config.get_bool("uigc.telemetry.device")
-        or config.get_int("uigc.telemetry.http-port") >= 0
-        or bool(config.get_string("uigc.telemetry.jsonl-path"))
-    ):
-        raise NotImplementedError(
-            "uigc.telemetry.* needs the telemetry package, which the port "
-            "does not have yet: ROADMAP.md Queue 1 item 6"
-        )
-
-
 class _GuardianBehavior(RawBehavior):
     def on_message(self, msg: Any) -> Any:
         return None
@@ -112,7 +88,6 @@ class ActorSystem:
         #: the race detector, analysis/race.py); read by every cell on
         #: its hot path, so it is a plain attribute, not a config lookup.
         self.sched_events = self.config.get_bool("uigc.analysis.sched-events")
-        _refuse_unported(self.config)
         self.dispatcher = Dispatcher(
             self.config.get_int("uigc.runtime.num-workers"),
             name=f"{name}-dispatcher",
@@ -128,10 +103,10 @@ class ActorSystem:
         self._cells_lock = threading.Lock()
         self.dead_letters = 0
         self._terminated = threading.Event()
-        #: Telemetry subsystem: not ported (its keys are refused above),
-        #: so it stays None.  Declared BEFORE the guardians/engine exist:
-        #: dispatcher threads read this attribute as soon as the first
-        #: cell processes a message.
+        #: Telemetry subsystem (uigc_tpu_torch/telemetry), attached below
+        #: when any ``uigc.telemetry.*`` key is on.  Declared BEFORE the
+        #: guardians/engine exist: dispatcher threads read this
+        #: attribute as soon as the first cell processes a message.
         self.telemetry: Optional[Any] = None
         #: Cluster-sharding subsystem (uigc_tpu/cluster), attached via
         #: ``ClusterSharding.attach(system)`` — API-driven (it needs
@@ -154,8 +129,33 @@ class ActorSystem:
             self._stop_machinery()
             raise
 
-        #: Online sanitizer (uigcsan): not ported, refused up front.
+        #: Online sanitizer (uigcsan), attached on request — it wraps
+        #: the engine's hooks and collector graph with an independent
+        #: oracle and cross-checks every collection cycle.
         self.sanitizer: Optional[Any] = None
+        if self.config.get_bool("uigc.analysis.sanitizer"):
+            from ..analysis import Sanitizer
+
+            self.sanitizer = Sanitizer.attach(self)
+
+        # Telemetry attach: metrics registry + exporters, causal tracer,
+        # collector wake profiler.  The runtime's hot paths read
+        # ``system.telemetry`` directly (None = zero overhead).  Inline
+        # key check so the package (http.server etc.) is only imported
+        # when some telemetry is actually switched on.
+        if (
+            self.config.get_bool("uigc.telemetry.metrics")
+            or self.config.get_bool("uigc.telemetry.tracing")
+            or self.config.get_bool("uigc.telemetry.wake-profile")
+            or self.config.get_bool("uigc.telemetry.inspect")
+            or self.config.get_bool("uigc.telemetry.timeseries")
+            or self.config.get_bool("uigc.telemetry.device")
+            or self.config.get_int("uigc.telemetry.http-port") >= 0
+            or bool(self.config.get_string("uigc.telemetry.jsonl-path"))
+        ):
+            from ..telemetry import Telemetry
+
+            self.telemetry = Telemetry.attach(self)
 
         if fabric is not None:
             fabric.register_system(self)

@@ -12,10 +12,29 @@ back to the CPU, so a run that reports device numbers ran on the device.
 
 from __future__ import annotations
 
+import threading
+
 import torch
 
 #: The compute capability the hand-written kernels are built for.
 HOPPER = (9, 0)
+
+#: (tag, seconds) of every kernel or native library built in this
+#: process, in build order; read by telemetry/device.py
+_builds: list = []
+_builds_lock = threading.Lock()
+
+
+def record_build(tag: str, seconds: float) -> None:
+    """Note one library build (``nvcc`` or ``g++``) and its seconds."""
+    with _builds_lock:
+        _builds.append((tag, float(seconds)))
+
+
+def build_log() -> list:
+    """The ``(tag, seconds)`` builds of this process so far, oldest first."""
+    with _builds_lock:
+        return list(_builds)
 
 
 def default_device() -> torch.device:
