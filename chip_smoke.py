@@ -99,6 +99,25 @@ Phases, each reported on its own lines:
    detection on the card: no violation, verdicts checked (CRGC) or tap
    facts checked (MAC, which has no oracle), every actor collected.
 
+10. Multi-node (``[cluster]`` lines): three actor systems on one
+   in-process Fabric in wire mode (serialized messages, async links),
+   every collector on cuda:0.  (a) BASELINE config 4, run_cluster_recovery
+   at CLUSTER_WORKERS workers on node B pinned only by refs held on node
+   C, C's pings to B dropped, on "device" (auto): no worker may stop
+   before C crashes, every worker must be collected after it, A's and
+   B's roots must still run, every collector trace must equal
+   trace_marks_np (OracleCheck, under a lock), and the kernel must launch
+   in A's and in B's collector (NodeLaunches counts per node).  (b) The
+   same on pipelined "decremental", whose harvested wakes HarvestCheck
+   holds against the oracle.  (c) The partitioned collector
+   (uigc.crgc.distributed) in the harness of tests/test_distributed.py
+   with the sanitizer on: DIST_RINGS three-node rings dropped, DIST_KEPT
+   kept; nothing may stop before the drop, every dropped ring member
+   must be collected and no kept one, cross_check_distributed must be
+   clean, every fold must stay in its node's slice, the wave, mark and
+   round events must show, and the kernel must not launch (the
+   partitioned fixpoint runs on the pointer plane).
+
 Then one JSON line with the kernel table (the full-walk times; launches
 counted on phase 6, the live collector, with every phase's counts beside
 them) and, last, {"ok": true, "device": {...}}.  Any failed check exits
@@ -110,15 +129,20 @@ import json
 import re
 import subprocess
 import sys
+import threading
 import time
 import types
+from collections import Counter
 
 import numpy as np
 import torch
 
+from uigc_tpu_torch import AbstractBehavior, Behaviors, Message, NoRefs, PostStop
+from uigc_tpu_torch.analysis.sanitizer import cross_check_distributed
 from uigc_tpu_torch.engines.crgc import arrays
 from uigc_tpu_torch.engines.crgc import mesh as mesh_backend
-from uigc_tpu_torch.models import run_rings, run_tree
+from uigc_tpu_torch.engines.crgc.collector import Bookkeeper
+from uigc_tpu_torch.models import run_cluster_recovery, run_rings, run_tree
 from uigc_tpu_torch.models.graphgen import powerlaw_actor_graph
 from uigc_tpu_torch.ops import cuda_trace as ct
 from uigc_tpu_torch.ops import propagate as prop
@@ -127,6 +151,9 @@ from uigc_tpu_torch.ops import trace as trace_ops
 from uigc_tpu_torch.ops.cuda_decremental import DecrementalTracer
 from uigc_tpu_torch.ops.cuda_incremental import EDGE, IncrementalCudaLayout
 from uigc_tpu_torch.parallel import sharded_trace as st
+from uigc_tpu_torch.runtime.fabric import Fabric
+from uigc_tpu_torch.runtime.remote import RemoteSpawner
+from uigc_tpu_torch.runtime.system import ActorSystem
 from uigc_tpu_torch.telemetry import inspect as tel_inspect
 from uigc_tpu_torch.telemetry import (DeviceObservatory, EventMetricsBridge,
                                       WakeProfiler, prometheus_text)
@@ -182,6 +209,19 @@ MESH_LIVE_RUNS = (
 TELEMETRY_TREE = dict(n_actors=100_000, fanout=8)
 SANITIZED_TREE = dict(n_actors=10_000, fanout=8)
 SANITIZED_RINGS = dict(n_rings=1_000, ring_size=10)
+#: phase 10: BASELINE config 4 at CLUSTER_WORKERS workers on node B
+#: (50x bench.py's 200), run on each backend of CLUSTER_RUNS (label,
+#: backend, pipelined); then the partitioned collector over DIST_RINGS
+#: dropped three-node rings and DIST_KEPT kept.  Cut from 30,000
+#: workers, where the device run alone took 59 s (build and collect).
+CLUSTER_WORKERS = 10_000
+CLUSTER_RUNS = (
+    ("config4/device/auto", "device", False),
+    ("config4/decremental/pipelined", "decremental", True),
+)
+CLUSTER_TIMEOUT_S = 240.0
+DIST_RINGS = 1_000
+DIST_KEPT = 100
 KERNEL_SOURCE = "uigc_tpu_torch/csrc/propagate.cu"
 REPLACES = "uigc_tpu/ops/pallas_trace.py:983"
 
@@ -700,7 +740,8 @@ class OracleCheck:
     traced wake on the collector's thread, or MeshShadowGraph's), and
     compares its marks with trace_marks_np on the same graph arrays.  A
     mismatch tells a wrong trace on the card from a wrong folded graph,
-    which the keep-alive window cannot."""
+    which the keep-alive window cannot.  Safe across threads: the
+    collectors of a multi-node run trace on their own."""
 
     def __init__(self, cls=arrays.ArrayShadowGraph):
         self.traces = 0
@@ -708,13 +749,11 @@ class OracleCheck:
         self.first = None
         self._cls = cls
         self._plain = cls.compute_marks
+        #: the collectors of a multi-node run trace on their own threads
+        self._lock = threading.Lock()
 
-    def __enter__(self):
-        def checked(graph):
-            mark = self._plain(graph)
-            want = trace_ops.trace_marks_np(
-                graph.flags, graph.recv_count, graph.supervisor,
-                graph.edge_src, graph.edge_dst, graph.edge_weight)
+    def judge(self, mark, want):
+        with self._lock:
             self.traces += 1
             if not np.array_equal(mark, want):
                 self.mismatches += 1
@@ -722,6 +761,11 @@ class OracleCheck:
                     self.first = (f"trace {self.traces}: "
                                   f"{int((want & ~mark).sum())} slots missed, "
                                   f"{int((mark & ~want).sum())} extra")
+
+    def __enter__(self):
+        def checked(graph):
+            mark = self._plain(graph)
+            self.judge(mark, graph_oracle(graph))
             return mark
 
         self._cls.compute_marks = checked
@@ -729,6 +773,63 @@ class OracleCheck:
 
     def __exit__(self, *exc):
         self._cls.compute_marks = self._plain
+
+
+def graph_oracle(graph):
+    return trace_ops.trace_marks_np(
+        graph.flags, graph.recv_count, graph.supervisor, graph.edge_src,
+        graph.edge_dst, graph.edge_weight)
+
+
+class HarvestCheck:
+    """OracleCheck's counterpart for pipelined wakes, which never call
+    compute_marks: at ``launch_trace`` the oracle's marks are taken on
+    the arrays the wake just uploaded, and at ``harvest_trace`` the marks
+    read back (``arrays._readback``, label "marks.harvest") are judged
+    by ``oracle`` against them."""
+
+    def __init__(self, oracle):
+        self.oracle = oracle
+        self._tls = threading.local()
+        self._launch = arrays.ArrayShadowGraph.launch_trace
+        self._harvest = arrays.ArrayShadowGraph.harvest_trace
+        self._readback = arrays._readback
+
+    def __enter__(self):
+        launch, harvest, readback = (self._launch, self._harvest,
+                                     self._readback)
+        tls, oracle = self._tls, self.oracle
+
+        def launched(graph):
+            before = graph._pending_wake
+            launch(graph)
+            if graph._pending_wake is not None and (
+                    graph._pending_wake is not before):
+                graph._smoke_want = graph_oracle(graph)
+
+        def harvested(graph, should_kill):
+            tls.graph = graph
+            try:
+                return harvest(graph, should_kill)
+            finally:
+                tls.graph = None
+
+        def read(x, label):
+            out = readback(x, label)
+            graph = getattr(tls, "graph", None)
+            if label == "marks.harvest" and graph is not None:
+                oracle.judge(out, graph._smoke_want)
+            return out
+
+        arrays.ArrayShadowGraph.launch_trace = launched
+        arrays.ArrayShadowGraph.harvest_trace = harvested
+        arrays._readback = read
+        return self
+
+    def __exit__(self, *exc):
+        arrays.ArrayShadowGraph.launch_trace = self._launch
+        arrays.ArrayShadowGraph.harvest_trace = self._harvest
+        arrays._readback = self._readback
 
 
 def live_kernel_checks(kept, errs, label):
@@ -1566,6 +1667,307 @@ def phase_telemetry(device="cuda"):
     return launches
 
 
+# --------------------------------------------------------------------- #
+# 10. multi-node
+# --------------------------------------------------------------------- #
+
+
+class NodeLaunches:
+    """Kernel launches per node: ``Bookkeeper.on_message`` (a collector
+    wake, or the undo-log fold a membership message triggers) names the
+    node whose collector runs on the calling thread, and the kernel
+    wrapper adds each launch to that node's count (under a lock: the
+    collectors of the three systems launch from their own threads)."""
+
+    def __init__(self):
+        self.by_node = Counter()
+        self._lock = threading.Lock()
+        self._tls = threading.local()
+        self._on_message = Bookkeeper.on_message
+        self._wrapped = prop.propagate_words_cuda
+
+    def __enter__(self):
+        on_message, wrapped, tls = self._on_message, self._wrapped, self._tls
+
+        def named(bookkeeper, msg):
+            prev = getattr(tls, "node", None)
+            tls.node = bookkeeper.engine.system.name
+            try:
+                return on_message(bookkeeper, msg)
+            finally:
+                tls.node = prev
+
+        def counted(*args, **kw):
+            out = wrapped(*args, **kw)
+            with self._lock:
+                self.by_node[getattr(tls, "node", None)] += 1
+            return out
+
+        Bookkeeper.on_message = named
+        prop.propagate_words_cuda = counted
+        return self
+
+    def __exit__(self, *exc):
+        Bookkeeper.on_message = self._on_message
+        prop.propagate_words_cuda = self._wrapped
+
+
+def cluster_run(label, backend, pipelined, errs):
+    """BASELINE config 4 (run_cluster_recovery) at CLUSTER_WORKERS with
+    the three collectors on the card, in wire mode (the default Fabric:
+    serialized, async links) with C's pings to B dropped.  Every trace
+    of every collector is held against trace_marks_np.  Returns its
+    launches."""
+    config = {
+        "uigc.crgc.shadow-graph": backend,
+        "uigc.crgc.device": "cuda",
+        "uigc.crgc.trace-mode": "auto",
+        "uigc.crgc.pipelined": pipelined,
+    }
+    prop.reset_launches()
+    with LaunchCapture() as cap, NodeLaunches() as nodes, \
+            OracleCheck() as oc, HarvestCheck(oc):
+        try:
+            r = run_cluster_recovery(CLUSTER_WORKERS, drop_pings=True,
+                                     config=config,
+                                     timeout_s=CLUSTER_TIMEOUT_S)
+        except (AssertionError, RuntimeError) as exc:
+            raise SmokeFailure(
+                f"cluster {label}: {exc} (oracle: {oc.mismatches} of "
+                f"{oc.traces} traces differ; first {oc.first})") from exc
+    launches = dict(prop.launches)
+    by_node = dict(nodes.by_node)
+    check(all(r["roots_alive"].values()),
+          f"cluster {label}: a survivor's root stopped: {r['roots_alive']}")
+    check(oc.traces > 0, f"cluster {label}: no trace was checked")
+    check(oc.mismatches == 0,
+          f"cluster {label}: {oc.mismatches} of {oc.traces} traces differ "
+          f"from trace_marks_np; first {oc.first}")
+    check(sum(launches.values()) > 0,
+          f"cluster {label}: the kernel never launched in a collector")
+    check(sum(by_node.values()) == sum(launches.values())
+          and None not in by_node,
+          f"cluster {label}: launches outside a collector: {by_node} "
+          f"against {launches}")
+    for node in ("benchA", "benchB"):
+        check(by_node.get(node, 0) > 0,
+              f"cluster {label}: {node}'s collector never launched: "
+              f"{by_node}")
+    n = r["n_collected"]
+    say(f"[cluster] {label} workers={n} drop_pings=True "
+        f"build_s={r['build_s']:.3f} collect_s={r['collect_s']:.3f} "
+        f"collected_per_s={n / r['collect_s']:.1f} wakes={r['wakes']} "
+        f"oracle_traces={oc.traces} launches={launches} "
+        f"launches_by_node={by_node} roots_alive={r['roots_alive']}")
+    live_kernel_checks(cap.kept, errs, f"cluster {label}")
+    return launches
+
+
+class DHold(Message):
+    def __init__(self, ref):
+        self.ref = ref
+
+    @property
+    def refs(self):
+        return (self.ref,)
+
+
+class DGo(NoRefs):
+    def __init__(self, rings, kept):
+        self.rings = rings
+        self.kept = kept
+
+
+class DDrop(NoRefs):
+    pass
+
+
+class RingTally:
+    """Spawns and PostStops of the partitioned run's workers, counted on
+    whichever thread they happen."""
+
+    def __init__(self):
+        self.spawned = 0
+        self.stopped = Counter()
+        self._cond = threading.Condition()
+
+    def spawn(self):
+        with self._cond:
+            self.spawned += 1
+            self._cond.notify_all()
+
+    def stop(self, kept):
+        with self._cond:
+            self.stopped[kept] += 1
+            self._cond.notify_all()
+
+    def wait(self, pred, timeout_s):
+        with self._cond:
+            return self._cond.wait_for(pred, timeout_s)
+
+
+class DWorker(AbstractBehavior):
+    def __init__(self, context, tally):
+        super().__init__(context)
+        self.tally = tally
+        self.held = []
+        self.kept = False
+        tally.spawn()
+
+    def on_message(self, msg):
+        if isinstance(msg, DHold):
+            self.held.append(msg.ref)
+        elif isinstance(msg, DGo):  # the master marks the kept rings
+            self.kept = True
+        return self
+
+    def on_signal(self, signal):
+        if signal is PostStop:
+            self.tally.stop(self.kept)
+        return None
+
+
+class DRingMaster(AbstractBehavior):
+    """tests/test_distributed.py's RingMaster: rings of workers, one per
+    node through the spawner services, each ring a cycle across the
+    cluster; the kept rings stay pinned by the master's refs."""
+
+    def __init__(self, context, spawners):
+        super().__init__(context)
+        self.spawners = spawners
+        self.workers = []
+        self.kept = []
+
+    def on_message(self, msg):
+        ctx = self.context
+        if isinstance(msg, DGo):
+            for r in range(msg.rings + msg.kept):
+                ring = [ctx.spawn_remote("worker", sc) for sc in self.spawners]
+                for i, w in enumerate(ring):
+                    w.tell(DHold(ctx.create_ref(ring[(i + 1) % len(ring)], w)),
+                           ctx)
+                    if r >= msg.rings:
+                        w.tell(DGo(0, 0), ctx)
+                (self.kept if r >= msg.rings else self.workers).extend(ring)
+        elif isinstance(msg, DDrop):
+            for w in self.workers:
+                ctx.release(w)
+            self.workers = []
+        return self
+
+
+class DistLog:
+    def __init__(self):
+        self.counts = Counter()
+        self._lock = threading.Lock()
+
+    def __call__(self, name, fields):
+        with self._lock:
+            self.counts[name] += 1
+
+    def __enter__(self):
+        events.recorder.enable()
+        events.recorder.add_listener(self)
+        return self
+
+    def __exit__(self, *exc):
+        events.recorder.remove_listener(self)
+        events.recorder.disable()
+        events.recorder.reset()
+
+
+def partitioned_run():
+    """The partitioned collector (uigc.crgc.distributed) on three nodes of
+    one Fabric, the harness of tests/test_distributed.py build_inproc,
+    with the sanitizer on: DIST_RINGS + DIST_KEPT rings across the three
+    nodes, the first DIST_RINGS dropped.  Its local fixpoint runs on the
+    pointer plane, so no kernel launches.  Returns its launches."""
+    config = {
+        "uigc.crgc.wakeup-interval": 10,
+        "uigc.crgc.egress-finalize-interval": 5,
+        "uigc.crgc.num-nodes": 3,
+        "uigc.crgc.distributed": True,
+        "uigc.analysis.sanitizer": True,
+    }
+    tally = RingTally()
+    total = 3 * (DIST_RINGS + DIST_KEPT)
+    prop.reset_launches()
+    with DistLog() as log:
+        fabric = Fabric()
+        systems = [ActorSystem(None, name=f"dn{i}", config=config,
+                               fabric=fabric) for i in range(3)]
+        try:
+            spawners = [RemoteSpawner.spawn_service(s, {"worker": Behaviors.setup(
+                lambda ctx: DWorker(ctx, tally))}) for s in systems]
+            master = systems[0].spawn_root(Behaviors.setup_root(
+                lambda ctx: DRingMaster(ctx, spawners)), "master")
+            t0 = time.perf_counter()
+            master.tell(DGo(DIST_RINGS, DIST_KEPT))
+            check(tally.wait(lambda: tally.spawned == total,
+                             CLUSTER_TIMEOUT_S),
+                  f"partitioned: {tally.spawned} of {total} workers spawned")
+            time.sleep(0.4)
+            check(sum(tally.stopped.values()) == 0,
+                  f"partitioned: {dict(tally.stopped)} stopped before the drop")
+            build_s = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            master.tell(DDrop())
+            check(tally.wait(lambda: tally.stopped[False] >= 3 * DIST_RINGS,
+                             CLUSTER_TIMEOUT_S),
+                  f"partitioned: {tally.stopped[False]} of {3 * DIST_RINGS} "
+                  f"dropped ring members collected")
+            collect_s = time.perf_counter() - t0
+            time.sleep(0.5)  # the kept rings must outlive a few more waves
+            check(tally.stopped[True] == 0,
+                  f"partitioned: {tally.stopped[True]} kept members stopped")
+            time.sleep(0.3)
+            graphs = [s.engine.bookkeeper.shadow_graph for s in systems]
+            for s, g in zip(systems, graphs):
+                check(g.audit_fold_locality() == [],
+                      f"partitioned: {s.name} folded outside its slice")
+                check(s.sanitizer.violations == [],
+                      f"partitioned: {s.name} sanitizer: "
+                      f"{s.sanitizer.violations[:3]}")
+                check(s.sanitizer.dist_sweeps > 0,
+                      f"partitioned: {s.name} ran no distributed sweep")
+            cross = cross_check_distributed(systems)
+            check(cross == [], f"partitioned: cross-check: {cross[:3]}")
+            for name in (events.DIST_WAVE, events.DIST_MARKS,
+                         events.DIST_ROUND):
+                check(log.counts[name] > 0, f"partitioned: no {name} event")
+            check(log.counts[events.DIST_LOCALITY] == 0,
+                  "partitioned: a fold-locality violation was committed")
+            owned = [g.owned_population() for g in graphs]
+            pops = [len(g.from_set) for g in graphs]
+        finally:
+            for s in systems:
+                s.terminate()
+    launches = dict(prop.launches)
+    check(sum(launches.values()) == 0,
+          f"partitioned: the pointer plane launched the kernel: {launches}")
+    say(f"[cluster] partitioned rings={DIST_RINGS} kept={DIST_KEPT} "
+        f"workers={total} build_s={build_s:.3f} collect_s={collect_s:.3f} "
+        f"waves={log.counts[events.DIST_WAVE]} "
+        f"mark_frames={log.counts[events.DIST_MARKS]} "
+        f"rounds={log.counts[events.DIST_ROUND]} owned={owned} "
+        f"populations={pops} cross_check=[] launches={launches} "
+        f"(0 expected: the partitioned fixpoint runs on the pointer plane)")
+    return launches
+
+
+def phase_cluster(errs):
+    """Phase 10.  Returns the launches per form over its runs."""
+    total = {"propagate": 0, "propagate_gated": 0}
+    for label, backend, pipelined in CLUSTER_RUNS:
+        for form, count in cluster_run(label, backend, pipelined,
+                                       errs).items():
+            total[form] += count
+    for form, count in partitioned_run().items():
+        total[form] += count
+    say(f"[cluster] launches={total}")
+    return total
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; nothing was run",
@@ -1651,6 +2053,12 @@ def main():
           f"the gated kernel never launched in phase 9: {telemetry_launches}")
     elapsed("phase 9")
 
+    torch.cuda.empty_cache()
+    cluster_launches = phase_cluster(errs)
+    check(sum(cluster_launches.values()) > 0,
+          f"the kernel never launched in phase 10: {cluster_launches}")
+    elapsed("phase 10")
+
     for form, row in kernels.items():
         row["launches"] = live_launches[form]
         row["launches_by_phase"] = {"trace_10M": main_launches[form],
@@ -1658,7 +2066,8 @@ def main():
                                     "live": live_launches[form],
                                     "mac": mac_launches[form],
                                     "mesh": mesh_launches[form],
-                                    "telemetry": telemetry_launches[form]}
+                                    "telemetry": telemetry_launches[form],
+                                    "multi_node": cluster_launches[form]}
         row["max_abs_err"] = errs[form]
     order = ("name", "route", "source", "replaces", "launches",
              "launches_by_phase", "max_abs_err", "ms", "plain_ms", "bound_ms",

@@ -6,6 +6,7 @@ caller asks for the CPU, and never fall back to the CPU on their own.
 """
 
 import ast
+import re
 import subprocess
 import sys
 import threading
@@ -52,7 +53,9 @@ MODULES = ("utils/validation.py", "utils/events.py", "utils/platform.py",
            "telemetry/profile.py", "telemetry/tracing.py",
            "telemetry/exporter.py", "telemetry/timeseries.py",
            "telemetry/alerts.py", "telemetry/device.py",
-           "telemetry/inspect.py")
+           "telemetry/inspect.py", "runtime/faults.py", "runtime/schema.py",
+           "runtime/wire.py", "runtime/remote.py", "parallel/partition.py",
+           "engines/crgc/distributed.py")
 
 
 def imported_roots(path):
@@ -100,6 +103,11 @@ def test_port_imports_with_jax_blocked():
         "import uigc_tpu_torch.engines.crgc.mesh\n"
         "import uigc_tpu_torch.analysis\n"
         "import uigc_tpu_torch.telemetry\n"
+        "import uigc_tpu_torch.runtime.wire\n"
+        "import uigc_tpu_torch.runtime.remote\n"
+        "import uigc_tpu_torch.runtime.faults\n"
+        "import uigc_tpu_torch.engines.crgc.distributed\n"
+        "from uigc_tpu_torch.models import run_cluster_recovery\n"
         "from uigc_tpu_torch import ActorSystem, ActorTestKit\n"
         "assert 'jax' not in [m.split('.')[0] for m in sys.modules\n"
         "                     if sys.modules[m] is not None]\n"
@@ -108,6 +116,38 @@ def test_port_imports_with_jax_blocked():
     out = subprocess.run([sys.executable, "-c", code], cwd=REPO,
                          capture_output=True, text=True, timeout=120)
     assert "IMPORT OK" in out.stdout, out.stderr[-2000:]
+
+
+def unported_raises():
+    """(file, message) of every ``raise NotImplementedError("...")`` in
+    the port whose message names a ROADMAP item: the paths that wait for
+    a module."""
+    out = []
+    for path in PORT_FILES:
+        for node in ast.walk(ast.parse(path.read_text(), str(path))):
+            if not isinstance(node, ast.Raise) or not isinstance(
+                    node.exc, ast.Call):
+                continue
+            if getattr(node.exc.func, "id", None) != "NotImplementedError":
+                continue
+            parts = [n.value for n in ast.walk(node.exc)
+                     if isinstance(n, ast.Constant) and isinstance(n.value,
+                                                                   str)]
+            message = "".join(parts)
+            if "ROADMAP" in message:
+                out.append((str(path.relative_to(REPO)), message))
+    return out
+
+
+def test_only_later_items_still_raise():
+    """The multi-node fabric, the wire codecs and the distributed
+    collector are ported: what still raises is the cluster's and the
+    gateway's tokens in the wire codec (ROADMAP.md Queue 1 items 8, 9)."""
+    raises = unported_raises()
+    items = sorted(re.search(r"Queue 1 item (\w+)", msg).group(1)
+                   for _, msg in raises)
+    assert items == ["8", "9"], raises
+    assert {f for f, _ in raises} == {"uigc_tpu_torch/runtime/wire.py"}
 
 
 def test_entry_points_raise_without_a_card(monkeypatch):
@@ -223,6 +263,19 @@ def test_native_build_runs_once_across_threads(monkeypatch, tmp_path):
     monkeypatch.setattr(native, "_build_error", None)
     results = _race(16, native.load)
     assert len(builds) == 1 and len(set(results)) == 1
+
+
+def test_launch_counts_survive_concurrent_collectors():
+    """The collectors of a multi-node run launch from their own threads:
+    no count is lost."""
+    saved = dict(prop.launches)
+    prop.reset_launches()
+    try:
+        _race(16, lambda: [prop._count_launch("propagate_gated")
+                           for _ in range(2000)])
+        assert prop.launches == {"propagate": 0, "propagate_gated": 32000}
+    finally:
+        prop.launches.update(saved)
 
 
 def test_propagate_cuda_refuses_cpu_tensors():

@@ -17,6 +17,7 @@ package's (``uigc_tpu/analysis``).
 
 import threading
 import time
+import types
 
 import numpy as np
 import pytest
@@ -214,17 +215,85 @@ def test_mac_gets_the_taps_only():
         kit.shutdown()
 
 
+class _Coord:
+    """The (system.address, uid) coordinates the oracle and cell_key read."""
+
+    __slots__ = ("system", "uid", "path")
+
+    def __init__(self, address, uid):
+        self.system = types.SimpleNamespace(address=address)
+        self.uid = uid
+        self.path = f"{address}/c{uid}"
+
+
+def _seeded_oracle(name, seed, n_cells=60, n_ops=200):
+    """``name``'s sanitizer over a bare stub system, its oracle folded
+    from a seeded delta script (two addresses, every fold kind)."""
+    pkg = PKGS[name][0]
+    mods = {"ref": ("uigc_tpu", ref_analysis), "port": ("uigc_tpu_torch",
+                                                      port_analysis)}
+    root, analysis = mods[name]
+    delta_mod = __import__(f"{root}.engines.crgc.delta", fromlist=["x"])
+    shadow_mod = __import__(f"{root}.engines.crgc.shadow", fromlist=["x"])
+    state = PKGS[name][2]
+    system = types.SimpleNamespace(
+        engine=None, address="uigc://a",
+        config=pkg.Config({"uigc.analysis.sanitizer": True}))
+    san = analysis.Sanitizer(system)
+    ctx = state.CrgcContext(delta_graph_size=512, entry_field_size=4)
+    san.oracle = shadow_mod.ShadowGraph(ctx, "uigc://a")
+    rng = np.random.default_rng(seed)
+    cells = [_Coord(("uigc://a", "uigc://b")[i % 2], 5 + 3 * i)
+             for i in range(n_cells)]
+    graph = delta_mod.DeltaGraph("uigc://a", ctx)
+    for op, a, b, k in rng.integers(0, n_cells, (n_ops, 4)).tolist():
+        a, b = cells[a], cells[b]
+        if op % 5 == 0:
+            graph.fold_self(a, k % 4, bool(k % 2), k % 7 == 0)
+        elif op % 5 == 1:
+            graph.fold_created(a, b)
+        elif op % 5 == 2:
+            graph.fold_spawned(a, b)
+        elif op % 5 == 3:
+            graph.fold_sends(a, k % 3)
+        else:
+            graph.fold_deactivate(a, b)
+    san.oracle.merge_delta(graph)
+    return san
+
+
 def test_distributed_paths_raise_naming_the_roadmap_item():
-    kit = uigc_tpu_torch.ActorTestKit(dict(BASE))
-    try:
-        san = kit.system.sanitizer
-        with pytest.raises(NotImplementedError, match="Queue 1 item 7c"):
-            san.oracle_slice(object())
-        with pytest.raises(NotImplementedError, match="Queue 1 item 7c"):
-            san._reset_partition({0}, object())
-        san._reset_partition({0}, None)  # single node: nothing to reset
-    finally:
-        kit.shutdown()
+    """The distributed collector's sanitizer paths, which raised (naming
+    ROADMAP item 7c) until the collector was ported: ``oracle_slice``
+    and ``_reset_partition`` give the reference's slices on a seeded
+    ``PartitionMap`` over the same seeded oracle."""
+    import uigc_tpu.parallel.partition as ref_partition
+    import uigc_tpu_torch.parallel.partition as port_partition
+
+    members = ["uigc://a", "uigc://b", "uigc://c"]
+    for seed in range(3):
+        sans = {name: _seeded_oracle(name, seed) for name in ("ref", "port")}
+        pmaps = {name: mod.PartitionMap(members, 16, fence=seed,
+                                        self_address="uigc://a")
+                 for name, mod in (("ref", ref_partition),
+                                   ("port", port_partition))}
+        before = sans["port"].oracle_slice(None)
+        assert before == sans["ref"].oracle_slice(None)
+        owned = sans["port"].oracle_slice(pmaps["port"])
+        assert owned == sans["ref"].oracle_slice(pmaps["ref"])
+        assert 0 < len(owned) < len(before)
+        gained = set(range(0, 16, 2))
+        for name in ("ref", "port"):
+            sans[name]._reset_partition(gained, pmaps[name])
+            sans[name]._reset_partition(gained, None)  # single node: no-op
+        after = sans["port"].oracle_slice(None)
+        assert after == sans["ref"].oracle_slice(None)
+        assert after != before
+        cleared = [k for k in after
+                   if pmaps["port"].partition_of(k) in gained]
+        assert cleared
+        for k in cleared:
+            assert not after[k]["interned"] and not after[k]["outgoing"]
 
 
 # --------------------------------------------------------------------- #

@@ -283,7 +283,15 @@ def test_each_key_attaches_its_part_and_terminate_closes_it(key, tmp_path):
     assert tel.sampler is None
 
 
-def test_single_node_registers_no_cross_node_frame():
+def test_single_node_registers_no_cross_node_frame(monkeypatch):
+    # Other tests in this process may have loaded the wire codec: take it
+    # out of sys.modules for the check, so a single node must not load it
+    # again.
+    import uigc_tpu_torch.runtime as port_runtime
+
+    monkeypatch.delitem(sys.modules, "uigc_tpu_torch.runtime.wire",
+                        raising=False)
+    monkeypatch.delattr(port_runtime, "wire", raising=False)
     system = ActorSystem(None, name="solo", config=dict(CPU, **{
         "uigc.telemetry.inspect": True, "uigc.telemetry.timeseries": True,
         "uigc.telemetry.ts-sample-interval": 20}))
@@ -299,17 +307,34 @@ def test_single_node_registers_no_cross_node_frame():
 
 
 def test_a_frame_speaking_fabric_would_take_the_wire_branch():
-    """The guard is what keeps a single node off the wire codec: a
-    fabric with register_frame_handler reaches the (unported) wire
-    module and raises."""
+    """A fabric that speaks custom frames (``register_frame_handler``)
+    gets the ``snap`` handler, which decodes a frame the reference's wire
+    codec encoded: a peer's snapshot request is answered with this
+    node's snapshot, in a frame the reference decodes."""
+    import uigc_tpu.runtime.wire as ref_wire
+
+    handlers, sent = {}, []
     system = ActorSystem(None, name="framed", config=dict(CPU))
     try:
         system.fabric = types.SimpleNamespace(
-            register_frame_handler=lambda kind, fn: None)
+            register_frame_handler=lambda kind, fn: handlers.__setitem__(
+                kind, fn),
+            _live_peers=lambda: ["uigc://peer"],
+            send_frame=lambda addr, frame: sent.append((addr, frame)))
         system.config = port_config.Config(dict(CPU, **{
             "uigc.telemetry.inspect": True}))
-        with pytest.raises(ImportError):
-            port_tel.Telemetry.attach(system)
+        tel = port_tel.Telemetry.attach(system)
+        assert tel._snap_frame_registered
+        handler = handlers[ref_wire.SNAP_FRAME_KIND]
+        handler("uigc://peer", ref_wire.encode_snap_request(41, "uigc://peer"))
+        assert len(sent) == 1 and sent[0][0] == "uigc://peer"
+        kind, req_id, origin, payload = ref_wire.decode_snap_frame(sent[0][1])
+        assert (kind, req_id, origin) == ("rsp", 41, system.address)
+        assert json.loads(payload)["node"] == system.address
+        handler("uigc://peer", ("snap", "bogus"))  # malformed: ignored
+        assert len(sent) == 1
+        tel.close()
+        assert handlers[ref_wire.SNAP_FRAME_KIND] is None
     finally:
         system.fabric = None
         system.terminate()

@@ -16,6 +16,10 @@ CRGC engine, whose ``device`` and ``decremental`` shadow-graph backends
 trace through that kernel in a live collector, and whose ``mesh`` and
 ``mesh-decremental`` backends shard that trace by node range over
 several cards (``parallel/``), the kernel running on every shard.
+Several systems in one process form a cluster over the in-process
+``runtime.fabric.Fabric``, each collector folding its peers' deltas into
+a replica it traces, or, with ``uigc.crgc.distributed``, owning one
+partition of the graph (``engines/crgc/distributed.py``).
 
 The public API mirrors ``uigc_tpu``'s, without cluster sharding (not
 ported yet).

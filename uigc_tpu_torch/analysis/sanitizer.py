@@ -1,9 +1,5 @@
 """Copy of ``uigc_tpu/analysis/sanitizer.py`` (pure Python), held against
-it by ``tests/test_torch_sanitizer.py``.  What differs from the
-reference: the distributed-collector paths ``_reset_partition`` and
-``oracle_slice`` need ``parallel/partition.py``, which the port does not
-have yet, so they raise ``NotImplementedError`` (ROADMAP.md Queue 1 item
-7c).  Every single-node path is the reference's.
+it by ``tests/test_torch_sanitizer.py``.
 
 uigcsan: an online GC-soundness sanitizer.
 
@@ -81,14 +77,6 @@ if TYPE_CHECKING:  # pragma: no cover
 
 class SanitizerViolation(InvariantViolation):
     """A GC-soundness invariant the sanitizer watches did not hold."""
-
-
-def _no_partition(what: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"Sanitizer.{what} serves the distributed collector, which needs "
-        "parallel/partition.py; the port does not have it yet: ROADMAP.md "
-        "Queue 1 item 7c"
-    )
 
 
 def _path(cell: Any) -> str:
@@ -621,7 +609,15 @@ class Sanitizer:
         oracle and the real slice from the same blank."""
         if pmap is None:
             return
-        raise _no_partition("_reset_partition")
+        from ..engines.crgc.shadow import clear_authoritative_state
+        from ..parallel.partition import cell_key
+
+        with self._lock:
+            self._reach_cache = None
+            for shadow in self.oracle.from_set:
+                key = cell_key(shadow.self_cell)
+                if pmap.partition_of(key) in partitions:
+                    clear_authoritative_state(shadow)
 
     def note_dist_sweep(self, wave: int, garbage_keys: Any, live_keys: Any) -> None:
         """One distributed sweep's verdicts for this node's owned slice.
@@ -649,7 +645,32 @@ class Sanitizer:
         authoritative state here and undo folds may have adjusted their
         balances redundantly, so the owner's record is the one that
         counts."""
-        raise _no_partition("oracle_slice")
+        from ..parallel.partition import cell_key
+
+        out: Dict[Any, Dict[str, Any]] = {}
+        with self._lock:
+            for shadow in self.oracle.from_set:
+                key = cell_key(shadow.self_cell)
+                if pmap is not None and not pmap.owns(key):
+                    continue
+                out[key] = {
+                    "interned": shadow.interned,
+                    "is_root": shadow.is_root,
+                    "is_busy": shadow.is_busy,
+                    "is_halted": shadow.is_halted,
+                    "recv": shadow.recv_count,
+                    "supervisor": (
+                        cell_key(shadow.supervisor.self_cell)
+                        if shadow.supervisor is not None
+                        else None
+                    ),
+                    "outgoing": {
+                        cell_key(t.self_cell): c
+                        for t, c in shadow.outgoing.items()
+                        if c != 0
+                    },
+                }
+        return out
 
     # -- reachability / quiescence ------------------------------------- #
 

@@ -2,8 +2,8 @@
 table keeps its names: "oracle", "array", "device", "decremental",
 "native", "mesh" and "mesh-decremental" are built (the device and mesh
 backends on ``uigc.crgc.device``, the mesh over ``uigc.crgc.mesh-devices``
-shards); the distributed bookkeeper raises ``NotImplementedError`` until
-it is ported.
+shards); ``uigc.crgc.distributed`` builds the partitioned collector
+(``distributed.py``) as in the reference.
 
 The CRGC engine: conflict-replicated garbage collection.
 
@@ -109,13 +109,21 @@ class CRGC(Engine):
 
     def make_bookkeeper(self) -> Bookkeeper:
         if self.distributed:
-            raise NotImplementedError(
-                "uigc.crgc.distributed needs engines/crgc/distributed.py, "
-                "which the port does not have yet: ROADMAP.md Queue 1 item 7"
-            )
+            from .distributed import DistributedBookkeeper
+
+            return DistributedBookkeeper(self)
         return Bookkeeper(self)
 
     def make_shadow_graph(self) -> Any:
+        if self.distributed:
+            # The partitioned plane: authoritative state only for the
+            # owned slice, mirrors for boundary endpoints.  The local
+            # fixpoint runs the pointer plane; the device backends keep
+            # sharding *within* the node (mesh) and plug in behind the
+            # same dmark interface as a follow-on.
+            from .distributed import PartitionedShadowGraph
+
+            return PartitionedShadowGraph(self.crgc_context, self.system.address)
         if self.shadow_graph_impl == "oracle":
             from .shadow import ShadowGraph
 

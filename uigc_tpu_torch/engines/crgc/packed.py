@@ -181,9 +181,13 @@ class PackedPlane:
         committed before a taken row, on whatever ring, is taken too:
         the fold never sees an actor's later flush without its earlier
         ones (the reference drains ring by ring and can)."""
-        with self._lock:
-            rings = list(self._rings.values())
+        # The ring list is read inside the cut: a ring registers before
+        # its first commit, so every ring with a row before the cut is in
+        # it (read first, a ring registered and committed to between the
+        # two reads would be missed while later rows on others were cut).
         with self._cut_lock:
+            with self._lock:
+                rings = list(self._rings.values())
             cut = [(ring, ring.committed) for ring in rings]
         parts = [p for p in (ring.drain(upto) for ring, upto in cut)
                  if p is not None]

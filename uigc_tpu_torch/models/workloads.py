@@ -1,6 +1,5 @@
-"""Copy of ``uigc_tpu/models/workloads.py`` (pure Python): ``run_tree`` and
-``run_rings``.  ``run_cluster_recovery`` (BASELINE config 4) needs the
-multi-node fabric and waits for it (ROADMAP.md Queue 1 item 7).  Two
+"""Copy of ``uigc_tpu/models/workloads.py`` (pure Python): ``run_tree``,
+``run_rings`` and ``run_cluster_recovery``.  Two
 additions: ``hold_wakes`` holds the built topology for that many collector
 wakes before the release and fails if any actor stopped in that window
 (an unsound verdict kills live actors), and the result carries the
@@ -11,6 +10,12 @@ host clock.  ``probe(system, stage)``, when given, is called while the
 topology is held (stage ``"held"``, after the hold and before the
 release) and once every actor is collected (``"collected"``, before the
 system terminates); what it returns is the result's ``probe[stage]``.
+``run_cluster_recovery`` holds node B's collector that way before the
+crash and, held or not, fails if any worker stopped before it (the refs
+on node C keep every worker alive); it takes ``fabric_kwargs`` for the
+``Fabric`` (direct or wire links) and returns each node's collector
+wakes and whether the survivors' roots (user guardian and root actors of
+nodes A and B) still run once the workers are collected.
 
 Live-runtime benchmark workloads (BASELINE configs 1-4).
 
@@ -303,3 +308,135 @@ def run_rings(
                 **_collector_stats(system), "probe": probed}
     finally:
         system.terminate()
+
+
+def _roots_alive(system: ActorSystem) -> bool:
+    """Whether the system's user guardian and every root under it still
+    run."""
+    guardian = system._user_guardian
+    cells = [guardian, *list(guardian.children.values())]
+    return not any(c.is_terminated for c in cells)
+
+
+def run_cluster_recovery(
+    n_workers: int = 200,
+    drop_pings: bool = True,
+    config: Optional[Dict[str, Any]] = None,
+    timeout_s: float = 300.0,
+    hold_wakes: int = 0,
+    fabric_kwargs: Optional[Dict[str, Any]] = None,
+) -> Dict[str, Any]:
+    """Config 4: 3-node cluster; workers on node B are pinned solely by
+    refs held on node C; C crashes (with message drops injected on the
+    C->B link) and the survivors must reach the undo-log quorum, fold it,
+    and collect the workers."""
+    from ..runtime.fabric import Fabric
+
+    latch = _Latch(n_workers)
+    shared_done = threading.Event()
+
+    class Worker(AbstractBehavior):
+        def on_message(self, msg):
+            return self
+
+        def on_signal(self, signal):
+            if signal is PostStop:
+                latch.count_down()
+            return None
+
+    class Holder(AbstractBehavior):
+        """Root on doomed node C, holding the refs that pin B's workers."""
+
+        def __init__(self, context):
+            super().__init__(context)
+            self.held = []
+
+        def on_message(self, msg):
+            if isinstance(msg, _Share):
+                self.held.append(msg.ref)
+                # Keep traffic flowing across the doomed link so dropped
+                # messages skew the admitted counts.
+                msg.ref.tell(_Ping(), self.context)
+                if len(self.held) == n_workers:
+                    shared_done.set()
+            return self
+
+    class Owner(AbstractBehavior):
+        """Root on node B owning the workers; hands refs to C's holder,
+        then releases its own."""
+
+        def __init__(self, context, holder_refs):
+            super().__init__(context)
+            self.workers = [
+                context.spawn(Behaviors.setup(Worker), f"w{i}")
+                for i in range(n_workers)
+            ]
+            self.holder_refs = holder_refs
+
+        def on_message(self, msg):
+            ctx = self.context
+            if isinstance(msg, _Share):
+                holder = self.holder_refs[0]
+                for w in self.workers:
+                    holder.tell(_Share(ctx.create_ref(w, holder)), ctx)
+            elif isinstance(msg, _Release):
+                ctx.release(*self.workers)
+                self.workers = []
+            return self
+
+    cfg = {
+        "uigc.engine": "crgc",
+        "uigc.crgc.num-nodes": 3,
+        "uigc.crgc.wakeup-interval": 10,
+        "uigc.crgc.egress-finalize-interval": 5,
+    }
+    cfg.update(config or {})
+    fabric = Fabric(**(fabric_kwargs or {}))
+    sys_a = ActorSystem(None, name="benchA", config=cfg, fabric=fabric)
+    sys_b = ActorSystem(None, name="benchB", config=cfg, fabric=fabric)
+    sys_c = ActorSystem(None, name="benchC", config=cfg, fabric=fabric)
+    systems = (sys_a, sys_b, sys_c)
+    try:
+        t0 = time.perf_counter()
+        if drop_pings:
+            # Install before any traffic so ping drops skew the admitted
+            # counts on the doomed link — the undo-log path under test
+            # must reconcile C's claimed sends against what B actually
+            # admitted (ref-carrying shares travel B->C, unaffected).
+            fabric.set_drop_filter(
+                sys_c,
+                sys_b,
+                lambda m: isinstance(getattr(m, "payload", None), _Ping),
+            )
+        holder = sys_c.spawn_root(Behaviors.setup_root(Holder), "holder")
+        owner = sys_b.spawn_root(
+            Behaviors.setup_root(
+                lambda ctx: Owner(ctx, [ctx.engine.to_root_refob(holder.cell)])
+            ),
+            "owner",
+        )
+        owner.tell(_Share(None))  # hand refs to C's holder
+        assert shared_done.wait(timeout_s), "ref hand-off timed out"
+        owner.tell(_Release())  # only C's refs keep the workers now
+        time.sleep(0.3)  # let releases flush into the collectors
+        build_s = time.perf_counter() - t0
+
+        held = _hold(sys_b, latch, n_workers, hold_wakes, timeout_s)
+        stopped = n_workers - latch.count
+        if stopped:
+            raise RuntimeError(f"{stopped} workers stopped before the crash")
+        t0 = time.perf_counter()
+        fabric.crash(sys_c)
+        left = latch.await_zero(timeout_s)
+        collect_s = time.perf_counter() - t0
+        assert left == 0, f"{left} workers never collected after crash"
+        return {"n_collected": n_workers, "build_s": build_s,
+                "collect_s": collect_s, "held_wakes": held,
+                "wakes": {s.name: _collector_stats(s).get("wakes")
+                          for s in systems},
+                "roots_alive": {s.name: _roots_alive(s)
+                                for s in (sys_a, sys_b)}}
+    finally:
+        sys_a.terminate()
+        sys_b.terminate()
+        sys_c.terminate()

@@ -239,6 +239,9 @@ def get_wake_fn(n, specs, n_super, r_rows, s_rows, mode=pt.MODE_PUSH,
     telemetry/device.py."""
     key = (n, tuple(specs), n_super, r_rows, s_rows, mode, pull_density,
            with_stats)
+    # No lock: collectors of several systems on one card can miss here
+    # together and build the same fn twice; both are equal, the last
+    # store wins, and each miss commits its own compile event.
     fn = _fn_cache.get(key)
     if fn is None:
         t0 = time.perf_counter()

@@ -64,6 +64,10 @@ GATE_SKIP = 2  # walk nothing
 #: launches of each kernel form since the last reset_launches(); the
 #: wrapper adds one where it launches, and nowhere else
 launches = {"propagate": 0, "propagate_gated": 0}
+#: guards ``launches``: several collectors (one per system of a
+#: multi-node fabric) launch from their own threads, and ``+= 1`` on a
+#: dict entry is a read, an add and a store
+_launches_lock = threading.Lock()
 
 _CSRC = Path(__file__).resolve().parent.parent / "csrc"
 _SOURCE = _CSRC / "propagate.cu"
@@ -76,9 +80,15 @@ _lib = None
 _build_lock = threading.Lock()
 
 
+def _count_launch(form: str) -> None:
+    with _launches_lock:
+        launches[form] += 1
+
+
 def reset_launches() -> None:
-    for k in launches:
-        launches[k] = 0
+    with _launches_lock:
+        for k in launches:
+            launches[k] = 0
 
 
 # --------------------------------------------------------------------- #
@@ -353,7 +363,7 @@ def propagate_words_cuda(d, bmeta1, bmeta2, table, row_pos, emeta, out, *,
         )
     if err != 0:
         raise RuntimeError(f"propagate kernel launch failed: CUDA error {err}")
-    launches["propagate_gated" if gate is not None else "propagate"] += 1
+    _count_launch("propagate_gated" if gate is not None else "propagate")
     return out
 
 

@@ -1,5 +1,4 @@
-"""Copy of ``uigc_tpu/runtime/context.py`` (pure Python); ``spawn_remote``
-raises ``NotImplementedError`` until the node transport is ported.
+"""Copy of ``uigc_tpu/runtime/context.py`` (pure Python).
 
 The per-actor context facade: spawn / create_ref / release / self.
 
@@ -85,9 +84,12 @@ class ActorContext:
         """Spawn an actor on another node via its RemoteSpawner service,
         blocking until the remote cell exists (reference:
         ActorContext.scala:48-65 uses a blocking ask)."""
-        raise NotImplementedError(
-            "spawn_remote needs the node transport (runtime/remote.py), "
-            "which the port does not have yet: ROADMAP.md Queue 1 item 7"
+        from .remote import remote_spawn
+
+        return self.engine.spawn(
+            lambda info: remote_spawn(location, factory_key, info),
+            self.state,
+            self,
         )
 
     # Reference management ---------------------------------------------- #

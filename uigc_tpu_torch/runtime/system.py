@@ -1,7 +1,11 @@
 """Copy of ``uigc_tpu/runtime/system.py`` (pure Python).  What differs
 from the reference: an engine or backend the port cannot build raises
 after the dispatcher and timers are stopped, so a refused system leaves
-nothing running.
+nothing running; and a spawned cell resolves by uid (``resolve_cell``)
+while its setup runs, not only once it is registered.  A setup that
+spawns many children flushes entries naming its cell before
+``register_cell``, and a serialized fabric decodes the delta graph that
+carries them (``runtime/fabric.py`` says what the reference does then).
 
 The actor system: spawning, guardians, engine extension, shutdown.
 
@@ -199,6 +203,10 @@ class ActorSystem:
             )
         ctx = ActorContext(cell, spawn_info)
         cell.context = ctx
+        # Resolvable while its setup runs: the entries a setup flushes
+        # name this cell, and a wire decode of them must find it.
+        with self._cells_lock:
+            self._cells_ever[cell.uid] = cell
         cell.behavior = factory.setup_fn(ctx)
         self.register_cell(cell)
         cell.start()
