@@ -118,6 +118,26 @@ Phases, each reported on its own lines:
    round events must show, and the kernel must not launch (the
    partitioned fixpoint runs on the pointer plane).
 
+11. Multi-process (``[procs]`` lines): BASELINE config 4 across three OS
+   processes, one actor system on a NodeFabric (runtime/node.py, TCP on
+   localhost) each.  Node A is this process; B and C are children
+   (``chip_smoke.py --node-child <spec>``), each opening its own CUDA
+   context on the same card, checking it is a Hopper card, loading the
+   kernel library phase 2 built, and counting its own launches and
+   oracle checks, which it reports on a ``STATS {json}`` line.  B owns
+   PROC_WORKERS workers, each pinned only by a ref C holds; B drops C's
+   pings.  Every collector traces a full replica on the card.  (a)
+   ``device`` auto, C killed (SIGKILL: the survivors see EOF).  (b)
+   pipelined ``decremental`` with the heartbeat on and the shm rings
+   negotiated, C stopped (SIGSTOP: no EOF, only the phi-accrual verdict
+   can remove it), then killed.  Each run: no worker stops in
+   PROC_HOLD_WAKES of B's collector wakes before C's death, every worker
+   stops after it, A's and B's roots run, the kernel launched in A and
+   in B, and every collector trace in A and in B equals trace_marks_np
+   in that process; in (b) A and B each took C down by the heartbeat and
+   the A-B link ran on the shm ring.  Phase 1 prints the card's compute
+   mode, which must be Default for the children to open contexts.
+
 Then one JSON line with the kernel table (the full-walk times; launches
 counted on phase 6, the live collector, with every phase's counts beside
 them) and, last, {"ok": true, "device": {...}}.  Any failed check exits
@@ -126,7 +146,9 @@ non-zero before that line; there is no CPU path.
 
 import contextlib
 import json
+import os
 import re
+import signal
 import subprocess
 import sys
 import threading
@@ -142,7 +164,7 @@ from uigc_tpu_torch.analysis.sanitizer import cross_check_distributed
 from uigc_tpu_torch.engines.crgc import arrays
 from uigc_tpu_torch.engines.crgc import mesh as mesh_backend
 from uigc_tpu_torch.engines.crgc.collector import Bookkeeper
-from uigc_tpu_torch.models import run_cluster_recovery, run_rings, run_tree
+from uigc_tpu_torch.models import nodeproc, run_cluster_recovery, run_rings, run_tree
 from uigc_tpu_torch.models.graphgen import powerlaw_actor_graph
 from uigc_tpu_torch.ops import cuda_trace as ct
 from uigc_tpu_torch.ops import propagate as prop
@@ -152,6 +174,7 @@ from uigc_tpu_torch.ops.cuda_decremental import DecrementalTracer
 from uigc_tpu_torch.ops.cuda_incremental import EDGE, IncrementalCudaLayout
 from uigc_tpu_torch.parallel import sharded_trace as st
 from uigc_tpu_torch.runtime.fabric import Fabric
+from uigc_tpu_torch.runtime.node import NodeFabric
 from uigc_tpu_torch.runtime.remote import RemoteSpawner
 from uigc_tpu_torch.runtime.system import ActorSystem
 from uigc_tpu_torch.telemetry import inspect as tel_inspect
@@ -222,6 +245,22 @@ CLUSTER_RUNS = (
 CLUSTER_TIMEOUT_S = 240.0
 DIST_RINGS = 1_000
 DIST_KEPT = 100
+#: phase 11: config 4 across three processes at PROC_WORKERS workers on
+#: node B, per run of PROC_RUNS (label, backend, pipelined, how C dies:
+#: "kill" = SIGKILL, "stop" = SIGSTOP with the heartbeat and shm rings
+#: on, PROC_SILENT).  B's collector must wake PROC_HOLD_WAKES times
+#: before C's death with no worker stopped.
+PROC_WORKERS = 10_000
+PROC_RUNS = (
+    ("config4/device/auto/kill", "device", False, "kill"),
+    ("config4/decremental/pipelined/stop", "decremental", True, "stop"),
+)
+PROC_SILENT = {
+    "uigc.node.heartbeat-interval": 100,
+    "uigc.node.heartbeat-pause": 3000,
+    "uigc.node.shm-transport": True,
+}
+PROC_HOLD_WAKES = 10
 KERNEL_SOURCE = "uigc_tpu_torch/csrc/propagate.cu"
 REPLACES = "uigc_tpu/ops/pallas_trace.py:983"
 
@@ -270,6 +309,14 @@ def phase_device():
     check(smi.returncode == 0, f"nvidia-smi failed: {smi.stderr.strip()}")
     card = smi.stdout.strip().splitlines()[0]
     say(card)
+    mode = subprocess.run(
+        ["nvidia-smi", "--query-gpu=compute_mode", "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60,
+    ).stdout.strip().splitlines()
+    say(f"[device] compute_mode={mode[0] if mode else 'unknown'}")
+    check(mode and mode[0] == "Default",
+          f"the card's compute mode is {mode!r}, not Default: phase 11's "
+          f"child processes could not open their own contexts on it")
     cap = require_hopper()
     say(f"[device] {torch.cuda.get_device_name(0)} capability={cap} "
         f"count={torch.cuda.device_count()} torch={torch.__version__} "
@@ -1968,6 +2015,167 @@ def phase_cluster(errs):
     return total
 
 
+# --------------------------------------------------------------------- #
+# 11. multi-process
+# --------------------------------------------------------------------- #
+
+
+def node_child(spec):
+    """The main of a phase-11 child (``chip_smoke.py --node-child``): one
+    node of nodeproc's roles, with its collector on the card, its own
+    launches counted and every trace held against trace_marks_np in this
+    process, reported on its ``STATS`` lines."""
+    if spec.get("device", "cuda") == "cuda":
+        require_hopper()
+        prop.load_library()  # built by the driver's phase 2: the cache
+    prop.reset_launches()
+    with OracleCheck() as oc, HarvestCheck(oc):
+        nodeproc.run_child(spec, lambda: {
+            "launches": dict(prop.launches), "oracle_traces": oc.traces,
+            "oracle_mismatches": oc.mismatches, "oracle_first": oc.first})
+
+
+def proc_count(node):
+    spawned, stopped = node.ask("count", "COUNT").split()[1:]
+    return int(spawned), int(stopped)
+
+
+def wait_for(what, pred, timeout_s):
+    deadline = time.monotonic() + timeout_s
+    while not pred():
+        check(time.monotonic() < deadline, what)
+        time.sleep(0.05)
+
+
+def proc_run(label, backend, pipelined, death, device, errs):
+    """One config-4 run across three processes (the module note, phase
+    11).  Returns the launches per form of A's and B's collectors."""
+    config = {
+        "uigc.crgc.shadow-graph": backend,
+        "uigc.crgc.device": device,
+        "uigc.crgc.trace-mode": "auto",
+        "uigc.crgc.pipelined": pipelined,
+    }
+    if death == "stop":
+        config.update(PROC_SILENT)
+    argv = [sys.executable, os.path.abspath(__file__), "--node-child"]
+    spec = {"config": config, "device": device}
+    links = nodeproc.LinkTally().attach()
+    prop.reset_launches()
+    child_b = child_c = system = None
+    try:
+        with LaunchCapture() as cap, OracleCheck() as oc, HarvestCheck(oc):
+            t0 = time.perf_counter()
+            fabric = NodeFabric()
+            system = ActorSystem(None, name="procA",
+                                 config=dict(nodeproc.BASE, **config),
+                                 fabric=fabric)
+            fabric.listen()
+            child_c = nodeproc.Child(dict(spec, role="holder",
+                                          address="procC"), argv, wait=False)
+            child_b = nodeproc.Child(dict(spec, role="owner", address="procB",
+                                          with_drops=True,
+                                          n_workers=PROC_WORKERS),
+                                     argv, wait=False)
+            fabric.connect("127.0.0.1", child_b.wait_ready())
+            fabric.connect("127.0.0.1", child_c.wait_ready())
+            child_b.ask(f"connect 127.0.0.1:{child_c.port}", "CONNECTED")
+            start_s = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            child_b.ask("spawn_owner procC procA", "OWNER_SPAWNED",
+                        CLUSTER_TIMEOUT_S)
+            child_b.ask("share", "SHARED")
+            wait_for(f"procs {label}: the ref hand-off timed out",
+                     lambda: int(child_c.ask("held", "HELD").split()[1])
+                     >= PROC_WORKERS, CLUSTER_TIMEOUT_S)
+            child_b.ask("drop", "DROPPED")
+            build_s = time.perf_counter() - t0
+            wakes0 = child_b.stats()["wakes"]
+            wait_for(f"procs {label}: B's collector did not wake "
+                     f"{PROC_HOLD_WAKES} times",
+                     lambda: child_b.stats()["wakes"] - wakes0
+                     >= PROC_HOLD_WAKES, CLUSTER_TIMEOUT_S)
+            check(proc_count(child_b) == (PROC_WORKERS, 0),
+                  f"procs {label}: workers (spawned, stopped) before C's "
+                  f"death: {proc_count(child_b)}")
+            stats_c = child_c.stats()
+            t0 = time.perf_counter()
+            child_c.signal(signal.SIGKILL if death == "kill"
+                           else signal.SIGSTOP)
+            wait_for(f"procs {label}: workers not all collected after C's "
+                     f"death", lambda: proc_count(child_b)[1] >= PROC_WORKERS,
+                     CLUSTER_TIMEOUT_S)
+            collect_s = time.perf_counter() - t0
+            stats_b = child_b.stats()
+            stats_a = nodeproc.node_stats(system, fabric, links)
+            stats_a.update(launches=dict(prop.launches),
+                           oracle_traces=oc.traces,
+                           oracle_mismatches=oc.mismatches,
+                           oracle_first=oc.first)
+    except AssertionError as exc:  # a child died, erred or fell silent
+        raise SmokeFailure(f"procs {label}: {exc}") from exc
+    finally:
+        links.detach()
+        if child_c is not None:
+            child_c.kill9()
+        if child_b is not None:
+            child_b.shutdown()
+        if system is not None:
+            system.terminate()
+    launches = {}
+    for node, st_ in (("A", stats_a), ("B", stats_b)):
+        check(st_["roots_alive"], f"procs {label}: {node}'s root stopped")
+        check(device != "cuda" or sum(st_["launches"].values()) > 0,
+              f"procs {label}: {node}'s collector never launched the kernel")
+        check(st_["oracle_traces"] > 0 and st_["oracle_mismatches"] == 0,
+              f"procs {label}: {node}: {st_['oracle_mismatches']} of "
+              f"{st_['oracle_traces']} traces differ from trace_marks_np; "
+              f"first {st_['oracle_first']}")
+        check(st_["downed"] == ["uigc://procC"],
+              f"procs {label}: {node}'s collector downed {st_['downed']}")
+        if death == "stop":
+            check(st_["down"].get("uigc://procC") == "heartbeat",
+                  f"procs {label}: {node} did not take C down by the "
+                  f"heartbeat: {st_['down']}")
+        for form, count in st_["launches"].items():
+            launches[form] = launches.get(form, 0) + count
+    if death == "stop":
+        check(stats_a["shm"].get("uigc://procB")
+              and stats_b["shm"].get("uigc://procA"),
+              f"procs {label}: the A-B link never ran on the shm ring: "
+              f"{stats_a['shm']} {stats_b['shm']}")
+    frames = {f"{src}->{dst.split('//')[-1]}": fb
+              for src, st_ in (("procA", stats_a), ("procB", stats_b),
+                               ("procC", stats_c))
+              for dst, fb in sorted(st_["frames"].items())}
+    say(f"[procs] {label} workers={PROC_WORKERS} death={death} "
+        f"start_s={start_s:.3f} build_s={build_s:.3f} "
+        f"collect_s={collect_s:.3f} "
+        f"collected_per_s={PROC_WORKERS / collect_s:.1f} "
+        f"wakes={{A: {stats_a['wakes']}, B: {stats_b['wakes']}}} "
+        f"launches={{A: {stats_a['launches']}, B: {stats_b['launches']}}} "
+        f"oracle_traces={{A: {stats_a['oracle_traces']}, "
+        f"B: {stats_b['oracle_traces']}}} down={{A: {stats_a['down']}, "
+        f"B: {stats_b['down']}}} shm={{A: {stats_a['shm']}, "
+        f"B: {stats_b['shm']}}}")
+    say(f"[procs] {label} frames_bytes_per_link={frames}")
+    if device == "cuda":
+        live_kernel_checks(cap.kept, errs, f"procs {label}")
+    return launches
+
+
+def phase_procs(errs, device="cuda"):
+    """Phase 11.  Returns the launches per form of A's and B's
+    collectors over its runs."""
+    total = {"propagate": 0, "propagate_gated": 0}
+    for label, backend, pipelined, death in PROC_RUNS:
+        for form, count in proc_run(label, backend, pipelined, death,
+                                    device, errs).items():
+            total[form] += count
+    say(f"[procs] launches={total}")
+    return total
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; nothing was run",
@@ -2059,6 +2267,10 @@ def main():
           f"the kernel never launched in phase 10: {cluster_launches}")
     elapsed("phase 10")
 
+    torch.cuda.empty_cache()
+    procs_launches = phase_procs(errs)
+    elapsed("phase 11")
+
     for form, row in kernels.items():
         row["launches"] = live_launches[form]
         row["launches_by_phase"] = {"trace_10M": main_launches[form],
@@ -2067,7 +2279,8 @@ def main():
                                     "mac": mac_launches[form],
                                     "mesh": mesh_launches[form],
                                     "telemetry": telemetry_launches[form],
-                                    "multi_node": cluster_launches[form]}
+                                    "multi_node": cluster_launches[form],
+                                    "multi_process": procs_launches[form]}
         row["max_abs_err"] = errs[form]
     order = ("name", "route", "source", "replaces", "launches",
              "launches_by_phase", "max_abs_err", "ms", "plain_ms", "bound_ms",
@@ -2082,6 +2295,8 @@ def main():
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--node-child"]:
+        node_child(json.loads(sys.argv[2]))
     try:
         sys.exit(main())
     except SmokeFailure as exc:

@@ -55,7 +55,8 @@ MODULES = ("utils/validation.py", "utils/events.py", "utils/platform.py",
            "telemetry/alerts.py", "telemetry/device.py",
            "telemetry/inspect.py", "runtime/faults.py", "runtime/schema.py",
            "runtime/wire.py", "runtime/remote.py", "parallel/partition.py",
-           "engines/crgc/distributed.py")
+           "engines/crgc/distributed.py", "runtime/heartbeat.py",
+           "runtime/shm_ring.py", "runtime/node.py", "models/nodeproc.py")
 
 
 def imported_roots(path):
@@ -107,6 +108,10 @@ def test_port_imports_with_jax_blocked():
         "import uigc_tpu_torch.runtime.remote\n"
         "import uigc_tpu_torch.runtime.faults\n"
         "import uigc_tpu_torch.engines.crgc.distributed\n"
+        "import uigc_tpu_torch.runtime.node\n"
+        "import uigc_tpu_torch.runtime.heartbeat\n"
+        "import uigc_tpu_torch.runtime.shm_ring\n"
+        "import uigc_tpu_torch.models.nodeproc\n"
         "from uigc_tpu_torch.models import run_cluster_recovery\n"
         "from uigc_tpu_torch import ActorSystem, ActorTestKit\n"
         "assert 'jax' not in [m.split('.')[0] for m in sys.modules\n"
@@ -140,14 +145,20 @@ def unported_raises():
 
 
 def test_only_later_items_still_raise():
-    """The multi-node fabric, the wire codecs and the distributed
-    collector are ported: what still raises is the cluster's and the
-    gateway's tokens in the wire codec (ROADMAP.md Queue 1 items 8, 9)."""
+    """The multi-node fabric, the wire codecs, the distributed collector
+    and the TCP node transport are ported: what still raises is the
+    cluster's and the gateway's tokens in the wire codec (ROADMAP.md
+    Queue 1 items 8, 9).  The wire codec's ProxyCell resolver is the
+    node transport's class, and no message names item 7b."""
     raises = unported_raises()
     items = sorted(re.search(r"Queue 1 item (\w+)", msg).group(1)
                    for _, msg in raises)
     assert items == ["8", "9"], raises
     assert {f for f, _ in raises} == {"uigc_tpu_torch/runtime/wire.py"}
+    from uigc_tpu_torch.runtime import node, wire
+
+    assert wire._proxy_cell_class() is node.ProxyCell
+    assert not any("7b" in path.read_text() for path in PORT_FILES)
 
 
 def test_entry_points_raise_without_a_card(monkeypatch):

@@ -12,7 +12,7 @@ import json
 import random
 import re
 import sys
-import types
+import time
 
 import numpy as np
 import pytest
@@ -307,37 +307,42 @@ def test_single_node_registers_no_cross_node_frame(monkeypatch):
 
 
 def test_a_frame_speaking_fabric_would_take_the_wire_branch():
-    """A fabric that speaks custom frames (``register_frame_handler``)
-    gets the ``snap`` handler, which decodes a frame the reference's wire
-    codec encoded: a peer's snapshot request is answered with this
-    node's snapshot, in a frame the reference decodes."""
+    """On a port NodeFabric (the fabric that speaks custom frames)
+    telemetry registers the ``snap`` handler, which decodes a frame the
+    reference's wire codec encoded: a peer's snapshot request, sent over
+    the socket in the reference's bytes, is answered with this node's
+    snapshot in a frame the reference decodes; closing telemetry
+    unregisters the handler."""
     import uigc_tpu.runtime.wire as ref_wire
+    from uigc_tpu_torch.runtime.node import NodeFabric
 
-    handlers, sent = {}, []
-    system = ActorSystem(None, name="framed", config=dict(CPU))
+    config = dict(CPU, **{"uigc.crgc.num-nodes": 2})
+    fa, fb = NodeFabric(), NodeFabric()
+    a = ActorSystem(None, name="framed", config=dict(config, **{
+        "uigc.telemetry.inspect": True}), fabric=fa)
+    b = ActorSystem(None, name="asker", config=config, fabric=fb)
+    answers = []
     try:
-        system.fabric = types.SimpleNamespace(
-            register_frame_handler=lambda kind, fn: handlers.__setitem__(
-                kind, fn),
-            _live_peers=lambda: ["uigc://peer"],
-            send_frame=lambda addr, frame: sent.append((addr, frame)))
-        system.config = port_config.Config(dict(CPU, **{
-            "uigc.telemetry.inspect": True}))
-        tel = port_tel.Telemetry.attach(system)
+        tel = a.telemetry
         assert tel._snap_frame_registered
-        handler = handlers[ref_wire.SNAP_FRAME_KIND]
-        handler("uigc://peer", ref_wire.encode_snap_request(41, "uigc://peer"))
-        assert len(sent) == 1 and sent[0][0] == "uigc://peer"
-        kind, req_id, origin, payload = ref_wire.decode_snap_frame(sent[0][1])
-        assert (kind, req_id, origin) == ("rsp", 41, system.address)
-        assert json.loads(payload)["node"] == system.address
-        handler("uigc://peer", ("snap", "bogus"))  # malformed: ignored
-        assert len(sent) == 1
+        fb.register_frame_handler(ref_wire.SNAP_FRAME_KIND,
+                                  lambda peer, frame: answers.append(frame))
+        fb.connect("127.0.0.1", fa.listen())
+        assert fb.send_frame(a.address, ref_wire.encode_snap_request(
+            41, b.address))
+        assert fb.send_frame(a.address, ("snap", "bogus"))  # ignored
+        deadline = time.monotonic() + 10
+        while not answers and time.monotonic() < deadline:
+            time.sleep(0.01)
+        assert len(answers) == 1
+        kind, req_id, origin, payload = ref_wire.decode_snap_frame(answers[0])
+        assert (kind, req_id, origin) == ("rsp", 41, a.address)
+        assert json.loads(payload)["node"] == a.address
         tel.close()
-        assert handlers[ref_wire.SNAP_FRAME_KIND] is None
+        assert ref_wire.SNAP_FRAME_KIND not in fa._frame_handlers
     finally:
-        system.fabric = None
-        system.terminate()
+        for system in (a, b):
+            system.terminate()
 
 
 def test_profiled_device_wakes_carry_device_seconds():

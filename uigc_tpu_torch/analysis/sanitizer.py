@@ -1,5 +1,10 @@
 """Copy of ``uigc_tpu/analysis/sanitizer.py`` (pure Python), held against
-it by ``tests/test_torch_sanitizer.py``.
+it by ``tests/test_torch_sanitizer.py`` (on a NodeFabric, by
+``tests/test_torch_node_telemetry.py``).  What differs: beside a
+partitioned collector the oracle folds undo logs as that collector does,
+stickily (``engines/crgc/shadow.py`` ``sticky_undo``; ROADMAP.md Queue
+3), and re-applies them to the slices the absorb path resets; a rejoined
+address's actors are no longer halted on sight.
 
 uigcsan: an online GC-soundness sanitizer.
 
@@ -309,6 +314,9 @@ class Sanitizer:
 
             san.bookkeeper = bookkeeper
             san.oracle = ShadowGraph(engine.crgc_context, system.address)
+            # the partitioned collector's sticky undo fold, mirrored
+            san.oracle.sticky_undo = getattr(
+                bookkeeper.shadow_graph, "sticky_undo", False)
             bookkeeper.shadow_graph = _MirrorGraph(
                 bookkeeper.shadow_graph, san
             )
@@ -339,6 +347,8 @@ class Sanitizer:
                 # — and the healed peer's delta stream continues its
                 # own numbering, so the window re-learns from scratch.
                 with self._lock:
+                    if msg.address in self._folded_undo:
+                        self.oracle.forget_dead(msg.address)
                     self._folded_undo.discard(msg.address)
                     self._delta_seq.pop(msg.address, None)
             if isinstance(msg, DeltaMsg) and msg.graph.address is not None:
@@ -618,6 +628,8 @@ class Sanitizer:
                 key = cell_key(shadow.self_cell)
                 if pmap.partition_of(key) in partitions:
                     clear_authoritative_state(shadow)
+            self.oracle.reset_undo_slice(
+                lambda cell: pmap.partition_of(cell_key(cell)) in partitions)
 
     def note_dist_sweep(self, wave: int, garbage_keys: Any, live_keys: Any) -> None:
         """One distributed sweep's verdicts for this node's owned slice.

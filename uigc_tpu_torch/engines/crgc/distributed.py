@@ -1,13 +1,68 @@
 """Copy of ``uigc_tpu/engines/crgc/distributed.py`` (pure Python).  Its
 local fixpoint runs on the pointer plane (``shadow.py``), as in the
 reference, so the partitioned collector launches no kernel.  What
-differs: a routed delta carries its sender's wave cut (``DDelta``), and
-the receiver folds it into the running wave when the sender routed it
-before entering that wave (``DistributedBookkeeper._accept_delta``).
-The reference defers every delta that arrives during a wave
-(``uigc_tpu/engines/crgc/distributed.py:889-903``), so the halves of one
-entry can fall into different waves on different nodes and a live actor
-can be swept.
+differs:
+
+- **The wave stamp.**  A routed delta carries its sender's wave cut
+  (``DDelta``), and the receiver folds it into the running wave when the
+  sender routed it before entering that wave
+  (``DistributedBookkeeper._accept_delta``).  The reference defers every
+  delta that arrives during a wave
+  (``uigc_tpu/engines/crgc/distributed.py:889-903``), so the halves of
+  one entry can fall into different waves on different nodes and a live
+  actor can be swept.  On a ``NodeFabric`` the stamp rides the
+  ``"delta"`` frame's trailing fields (``runtime/node.py``).
+- **The per-link cut** (a Chandy-Lamport marker per link).  The stamp
+  only helps if the delta reaches its owner before the wave ends there.
+  A wave ends when the root has judged two quiet rounds, and each node's
+  report travels up the reduction tree to its parent, not to the owners
+  it routed deltas to.  The only counters the rounds compare are the
+  dmark counts.  So with order kept only per link, a report (or the
+  ``dfin`` it leads to) can overtake a delta still on another link: P
+  routes a delta to O, enters the wave, reports to the root, and O can
+  receive the root's ``dfin`` first.  The in-process ``Fabric`` hid this,
+  because ``control_send`` enqueues into the receiver's mailbox at once.
+  So each node, as it enters a wave, sends every peer a ``dcut`` marker
+  (``DCut``, ``wire.encode_dcut``) that names the wave, the era, and the
+  count of stamped deltas of that era it has routed to that peer; each
+  delta carries its index in that count (``DDelta.index``).  An owner
+  tracks, per (peer, era), how many stamped deltas it has received
+  without a gap in the indices, and it is not *settled* in a wave
+  (``_WaveState.settled``: it neither reports nor opens a round) until
+  each live peer's marker for that wave or a later one is in and that
+  many deltas have arrived (``_cut_open``).  A plain count would let a
+  later delta stand in for a lost one.  Every member must send markers:
+  a partitioned cluster that mixes the port with the reference, which
+  has none, would never end a wave.
+  Every delta a peer routed below the cut was sent before its marker,
+  so it is folded before the owner's first settled report, and the two
+  quiet rounds that end the wave count everything it changed.
+  Why the marker needs nothing more on a ``NodeFabric``: every frame to
+  one peer (``control_send``'s deltas and ``send_frame``'s markers
+  alike) enters that peer's one writer queue and leaves in queue order,
+  one sequence number each (``_send_frame``, ``_writer_loop``; the
+  ``"fb"`` batch keeps queue order inside a flush); the shm ring carries
+  the same bytes in the same order, and the in-stream ``shmgo`` barrier
+  and the recovery drain keep ring and socket frames from interleaving;
+  the receiver delivers each peer's frames in sequence order on one
+  thread (the socket reader, the ring reader or that peer's decode lane)
+  into the one collector cell's mailbox.  A frame that would arrive
+  behind a newer one is discarded by the sequence layer as a duplicate,
+  so reordering never changes the order the collector sees.
+- **What a FaultPlan that reorders or drops frames leaves.**  On a
+  ``NodeFabric`` the sequence layer turns a reordered frame into a lost
+  one (above).  A lost stamped delta leaves a gap in its link's indices,
+  its owner's count stops there, and the owner never settles in that
+  era: the cluster
+  completes no wave and collects nothing more until a membership change
+  opens a new era, and it never sweeps on a cut that misses the delta.
+  The new era forgives the loss without restoring the lost facts (the
+  absorb journals re-ship only partitions that move), so from there the
+  reference's model of a dropped frame applies.
+  A held-back (delayed) delta holds the wave until it arrives.  Drops,
+  duplicates and reorders of the other frame kinds are healed by the
+  wave protocol as in the reference.  The in-process ``Fabric`` applies
+  no fault plan to ``control_send``.
 
 The distributed collector: shadow graph sharded ACROSS cluster nodes.
 
@@ -177,6 +232,21 @@ class DDirty:
         self.origin = origin
 
 
+class DCut:
+    """The per-link wave marker: ``origin`` entered ``wave`` of era
+    ``fence`` after routing ``count`` stamped deltas of that era to the
+    receiver, in its wave state number ``entry`` (see the module note
+    on the per-link cut)."""
+
+    __slots__ = ("wave", "fence", "origin", "count", "entry")
+
+    def __init__(
+        self, wave: int, fence: int, origin: str, count: int, entry: int
+    ):
+        self.wave, self.fence, self.origin = wave, fence, origin
+        self.count, self.entry = count, entry
+
+
 class DJournal:
     """A retained per-partition delta journal re-sent to that
     partition's new owner after a membership change (the absorb path).
@@ -210,18 +280,25 @@ class DDelta(DeltaMsg):
     receiver folds this half into exactly those waves too — into the
     running wave when it is numbered above ``cut``, else after it.
     Without the stamp the two halves of one entry can land on opposite
-    sides of a wave (``DistributedBookkeeper._accept_delta``)."""
+    sides of a wave (``DistributedBookkeeper._accept_delta``).  ``index``
+    numbers the stamped deltas of era ``fence`` on this link (the
+    per-link cut, module note); -1 is a delta no marker counts."""
 
-    __slots__ = ("fence", "cut")
+    __slots__ = ("fence", "cut", "index")
 
-    def __init__(self, seqnum: int, graph: DeltaGraph, fence: int, cut: int):
+    def __init__(
+        self, seqnum: int, graph: DeltaGraph, fence: int, cut: int,
+        index: int = -1,
+    ):
         super().__init__(seqnum, graph)
         self.fence = fence
         self.cut = cut
+        self.index = index
 
     def reencode(self, fabric, dst_system) -> "DDelta":
         plain = super().reencode(fabric, dst_system)
-        return DDelta(plain.seqnum, plain.graph, self.fence, self.cut)
+        return DDelta(plain.seqnum, plain.graph, self.fence, self.cut,
+                      self.index)
 
 
 # ------------------------------------------------------------------- #
@@ -410,33 +487,32 @@ class PartitionedShadowGraph(ShadowGraph):
                     shadow.touch_tick = tick
         super().merge_delta(delta)
 
+    #: the sticky undo fold (shadow.py; ROADMAP.md Queue 3): an owner
+    #: folds a dead node's undo log while the absorb journals of the
+    #: partitions it gained may still be on their way, and it resets the
+    #: partitions it gains after a fold.  The reference's fold reaches
+    #: only the shadows present at that moment (``uigc_tpu/engines/crgc/
+    #: distributed.py:380-406``), so a dead node's actor re-folded later
+    #: stays unhalted and a recipient's admitted-count revert is lost:
+    #: the survivors' cycles through the dead node never collect.
+    sticky_undo = True
+
     def merge_undo_log(self, log) -> None:
         """Partition-restricted undo fold: every node receives the same
         quorum-complete log (ingress entries are broadcast), and each
         owner applies exactly the slice it owns — halts for owned
         actors hosted on the dead node, admitted-count reverts for
         owned recipients.  Non-owned adjustments are applied by THEIR
-        owners from their own copy of the log."""
-        from .shadow import _update_outgoing
+        owners from their own copy of the log.  Sticky: shadows that
+        appear later, and slices reset later, get the fold too."""
+        super().merge_undo_log(log)
 
-        touched = self.fold_touched
-        for shadow in self.from_set:
-            if not self.owns_shadow(shadow):
-                continue
-            wrote = False
-            if shadow.location == log.node_address:
-                shadow.is_halted = True
-                wrote = True
-            field = log.admitted.get(shadow.self_cell)
-            if field is not None:
-                shadow.recv_count += field.message_count
-                for target_cell, count in field.created_refs.items():
-                    _update_outgoing(
-                        shadow.outgoing, self.get_shadow(target_cell), count
-                    )
-                wrote = True
-            if wrote:
-                touched.add(cell_key(shadow.self_cell))
+    def _undo_scope(self, cell) -> bool:
+        return self.owns_key(cell_key(cell))
+
+    def _note_undo_write(self, shadow) -> None:
+        if self.owns_shadow(shadow):
+            self.fold_touched.add(cell_key(shadow.self_cell))
 
     def reset_partition(self, partitions: Set[int]) -> int:
         """In-place reset of the owned slice for ``partitions`` ahead of
@@ -454,6 +530,8 @@ class PartitionedShadowGraph(ShadowGraph):
             if self.shadow_partition(shadow) in partitions:
                 clear_authoritative_state(shadow)
                 n += 1
+        self.reset_undo_slice(
+            lambda cell: pmap.partition_of(cell_key(cell)) in partitions)
         return n
 
     # -- audits ------------------------------------------------------ #
@@ -507,7 +585,7 @@ class _WaveState:
         "out_marks", "out_sets", "sent_upto", "acked",
         "recv_upto", "recv_ahead",
         "changed", "reported_round", "probe_round_seen", "child_stats",
-        "fin", "idle",
+        "fin", "idle", "cut_open", "entry",
         # root only
         "probe_round", "round_done", "quiet_sig", "rounds_run",
     )
@@ -535,6 +613,11 @@ class _WaveState:
         self.child_stats: Dict[int, Dict[str, dict]] = {}
         self.fin = False
         self.idle = 0
+        #: peers whose per-link cut this wave still waits for
+        #: (DistributedBookkeeper._cut_open); not settled until empty
+        self.cut_open: Set[str] = set()
+        #: this node's wave-state number (DCut.entry)
+        self.entry = 0
         self.probe_round = 0
         self.round_done: Dict[int, bool] = {}
         #: the (sent, recv) signature of the last judged all-settled
@@ -556,7 +639,7 @@ class _WaveState:
         )
 
     def settled(self) -> bool:
-        if self.queue:
+        if self.queue or self.cut_open:
             return False
         for peer, lst in self.out_marks.items():
             if self.acked.get(peer, 0) < len(lst):
@@ -619,6 +702,17 @@ class DistributedBookkeeper(Bookkeeper):
         self._gates_seen: Dict[Tuple[str, int], Set] = {}
         # Per-owner delta builders for the current drain.
         self._builders: Dict[str, DeltaGraph] = {}
+        #: the per-link cut: (owner, fence) -> stamped deltas routed
+        #: there; (origin, fence) -> stamped deltas received from there
+        #: without a gap (the next index expected); origin -> (fence,
+        #: wave, count) of its newest marker
+        self._cut_sent: Dict[Tuple[str, int], int] = {}
+        self._cut_recv: Dict[Tuple[str, int], int] = {}
+        self._cut_marks: Dict[str, Tuple[int, int, int]] = {}
+        #: wave states created here, and origin -> (fence, wave, entry)
+        #: of the newest marker seen (a restarted wave, module note)
+        self._wave_entries = 0
+        self._cut_entry: Dict[str, Tuple[int, int, int]] = {}
         # Stats for the bench / dashboard.
         self.waves_completed = 0
         self.total_dist_garbage = 0
@@ -680,6 +774,9 @@ class DistributedBookkeeper(Bookkeeper):
         elif kind == "ddirty":
             d = wire.decode_ddirty(frame)
             msg = DDirty(d) if d else None
+        elif kind == "dcut":
+            d = wire.decode_dcut(frame)
+            msg = DCut(*d) if d else None
         elif kind == "djnl":
             d = wire.decode_djournal(frame)
             if d is not None:
@@ -733,6 +830,8 @@ class DistributedBookkeeper(Bookkeeper):
 
     def add_member(self, address: str) -> None:
         before = self.started
+        if address in self.downed_gcs:
+            self._graph().forget_dead(address)
         super().add_member(address)
         if self.multi_node and address in self.remote_gcs:
             self._remap_partitions()
@@ -767,6 +866,9 @@ class DistributedBookkeeper(Bookkeeper):
         self._gates_out = {}
         self._gates_acked = {}
         self._gates_seen = {}
+        for counts in (self._cut_sent, self._cut_recv):
+            for key in [k for k in counts if k[1] < self.fence]:
+                del counts[key]
 
     def _adopt_fence(self, fence: int) -> bool:
         """A frame from a higher partition era than our local
@@ -789,7 +891,19 @@ class DistributedBookkeeper(Bookkeeper):
                 self.pmap.members, self.num_partitions, fence, self._me,
                 cache=self.pmap._pcache,
             )
-            self._graph().set_partition_map(self.pmap)
+            g = self._graph()
+            g.set_partition_map(self.pmap)
+            # Peers route this era's facts by its member view, which we
+            # may not hold yet: deltas for partitions we gain at our own
+            # remap can fold before it.  So the absorb's reset happens
+            # now, on every slice we do not own (mirror state only, or a
+            # slice we owned in an earlier era), and the remap skips it:
+            # the reference resets at the remap and wipes those facts
+            # (uigc_tpu/engines/crgc/distributed.py:795-799), a lost
+            # release leaking its target, a lost create collecting it.
+            me, pmap = self._me, self.pmap
+            g.reset_partition({p for p in range(self.num_partitions)
+                               if pmap.owner(p) != me})
             if self.tree is None:
                 self.tree = ReductionTree(self.pmap.members)
         self._reset_wave_plane()
@@ -802,7 +916,8 @@ class DistributedBookkeeper(Bookkeeper):
         old = self.pmap
         if old is not None and old.members == members:
             return
-        if old is not None and not self._fence_adopted:
+        adopted = self._fence_adopted
+        if old is not None and not adopted:
             self.fence = max(self.fence + 1, self._cluster_fence())
         else:
             # First map, or an adopted era already covers this
@@ -830,8 +945,18 @@ class DistributedBookkeeper(Bookkeeper):
         if gained:
             # Absorb: reset the gained slices in place, then re-fold
             # this node's own journal; the surviving peers re-send
-            # theirs below (each under the bumped fence).
-            g.reset_partition(set(gained))
+            # theirs below (each under the bumped fence).  In an
+            # adopted era the slices were reset at the adoption
+            # (_adopt_fence), and what folded into them since is the
+            # new era's own routed facts, which no journal repeats:
+            # only the folded undo logs are applied to them anew.
+            if adopted:
+                gset = set(gained)
+                pmap = self.pmap
+                g.reset_undo_slice(
+                    lambda cell: pmap.partition_of(cell_key(cell)) in gset)
+            else:
+                g.reset_partition(set(gained))
             for p in gained:
                 journal = self._retained.get(p)
                 if journal is not None and journal.non_empty():
@@ -873,7 +998,15 @@ class DistributedBookkeeper(Bookkeeper):
 
     def on_message(self, msg: Any) -> Any:
         if isinstance(msg, DDelta):
+            key = (msg.graph.address, msg.fence)
+            if msg.index == self._cut_recv.get(key, 0):
+                self._cut_recv[key] = msg.index + 1
+            # else a gap: an earlier delta of the link was lost, and the
+            # count stays short of every later marker (module note)
             self._accept_delta(msg.graph, msg.fence, msg.cut)
+            self._recheck_cut(msg.graph.address)
+        elif isinstance(msg, DCut):
+            self._on_dcut(msg)
         elif isinstance(msg, DWave):
             self._on_dwave(msg)
         elif isinstance(msg, DMark):
@@ -994,8 +1127,15 @@ class DistributedBookkeeper(Bookkeeper):
             return
         keep: List[DJournal] = []
         for j in self._pending_journals:
-            if j.fence > self.fence:
-                keep.append(j)  # our membership view hasn't caught up
+            if j.fence > self.fence or (
+                j.fence == self.fence and self._fence_adopted
+            ):
+                # Our membership view hasn't caught up.  An ADOPTED era
+                # re-stamps the member view of before its transition,
+                # so ownership judged now would be the old era's: a
+                # journal for a partition we gain at our own remap
+                # would be dropped and its facts lost (a leak).
+                keep.append(j)
             elif j.fence == self.fence and self.pmap is not None:
                 if self.pmap.owner(j.partition) == self._me:
                     with events.recorder.timed(events.MERGING_DELTA_GRAPHS):
@@ -1094,12 +1234,15 @@ class DistributedBookkeeper(Bookkeeper):
             gc = self.remote_gcs.get(owner)
             if gc is not None:
                 cut = self.ws.wave if self.ws is not None else self._last_wave_done
+                key = (owner, self.fence)
+                index = self._cut_sent.get(key, 0)
                 fabric.control_send(
                     self.engine.system,
                     gc,
-                    DDelta(self.delta_graph_id, delta, self.fence, cut),
+                    DDelta(self.delta_graph_id, delta, self.fence, cut, index),
                 )
                 self.delta_graph_id += 1
+                self._cut_sent[key] = index + 1
         self._builders = {}
 
     def _fold_pending(self, upto: Optional[int] = None) -> None:
@@ -1226,6 +1369,7 @@ class DistributedBookkeeper(Bookkeeper):
         if ws is not None:
             self._fixpoint(ws)
             self._send_dmarks(ws, retransmit=True)
+            self._send_cut_marks(ws)
             if self._is_root():
                 # Keep late joiners / dropped dwave frames in the wave
                 # (the round stamp rides along — dprobe's fallback).
@@ -1298,6 +1442,7 @@ class DistributedBookkeeper(Bookkeeper):
                 wire.encode_dwave(self.wave, self.fence, self._me),
                 DWave(self.wave, self.fence, self._me),
             )
+        self._open_cut(self.ws)
 
     def _enter_wave(self, wave: int, fence: int) -> bool:
         """Adopt a wave the root (or a peer's dmark racing the dwave)
@@ -1328,7 +1473,90 @@ class DistributedBookkeeper(Bookkeeper):
         self.wave = max(self.wave, wave)
         self._graph_dirty = False
         self.ws = _WaveState(wave, fence)
+        self._open_cut(self.ws)
         return True
+
+    # -- the per-link cut (module note) ------------------------------- #
+
+    def _open_cut(self, ws: _WaveState) -> None:
+        """On entering a wave: number the wave state, mark every link,
+        then list the peers whose own marks this node still waits for."""
+        self._wave_entries += 1
+        ws.entry = self._wave_entries
+        self._send_cut_marks(ws)
+        for peer in self.pmap.members:
+            if peer != self._me and self._cut_open(ws, peer):
+                ws.cut_open.add(peer)
+
+    def _send_cut_marks(self, ws: _WaveState) -> None:
+        """Mark every link with the wave and the stamped deltas routed
+        on it so far.  Re-sent on every wake of the wave (a lost marker
+        only delays it): each marker follows the deltas it counts on
+        its link."""
+        for peer in self.pmap.members:
+            if peer == self._me:
+                continue
+            count = self._cut_sent.get((peer, ws.fence), 0)
+            self._send_dist(
+                peer,
+                wire.encode_dcut(ws.wave, ws.fence, self._me, count, ws.entry),
+                DCut(ws.wave, ws.fence, self._me, count, ws.entry),
+            )
+
+    def _cut_open(self, ws: _WaveState, peer: str) -> bool:
+        """Does ``ws`` still wait for ``peer``'s side of the cut: its
+        marker for this wave (or a later one) of this era, and every
+        stamped delta the marker counts?"""
+        mark = self._cut_marks.get(peer)
+        if mark is None or mark[0] != ws.fence or mark[1] < ws.wave:
+            return True
+        return self._cut_recv.get((peer, ws.fence), 0) < mark[2]
+
+    def _recheck_cut(self, peer: str) -> None:
+        ws = self.ws
+        if ws is None or peer not in ws.cut_open:
+            return
+        if not self._cut_open(ws, peer):
+            ws.cut_open.discard(peer)
+            if not ws.cut_open:
+                self._pump(ws)
+
+    def _on_dcut(self, msg: DCut) -> None:
+        mark = self._cut_marks.get(msg.origin)
+        if mark is None or (msg.fence, msg.wave, msg.count) > mark:
+            self._cut_marks[msg.origin] = (msg.fence, msg.wave, msg.count)
+        seen = self._cut_entry.get(msg.origin)
+        self._cut_entry[msg.origin] = (msg.fence, msg.wave, msg.entry)
+        ws = self.ws
+        if (
+            seen is not None
+            and seen[:2] == (msg.fence, msg.wave)
+            and seen[2] != msg.entry
+            and ws is not None
+            and (ws.fence, ws.wave) == (msg.fence, msg.wave)
+        ):
+            self._restart_link(ws, msg.origin)
+        self._recheck_cut(msg.origin)
+
+    def _restart_link(self, ws: _WaveState, peer: str) -> None:
+        """``peer`` restarted this wave in place: its remap aborted the
+        wave it had entered in an era adopted from a peer (under the
+        member view of before the era's transition), and the root's
+        retransmits brought it back into the same wave id with fresh
+        counters.  The reference has no such signal: the marks the
+        aborted state had acknowledged are never re-sent, the peer's
+        fresh receive count never reaches our send count, and no round
+        of the era is ever quiet (``uigc_tpu/engines/crgc/distributed.py
+        :765-787`` resets the wave plane at a remap that adopted its
+        fence).  So restart this link's side of the wave too: re-send our
+        marks from the start and count the peer's from the start.  Marks
+        it relayed before the restart stay (marks only grow)."""
+        ws.acked.pop(peer, None)
+        ws.sent_upto.pop(peer, None)
+        ws.recv_upto.pop(peer, None)
+        ws.recv_ahead.pop(peer, None)
+        ws.changed = True
+        self._send_dmarks(ws)
 
     def _owned(self, shadow) -> bool:
         # Through the graph's per-shadow partition memo: this runs
@@ -1868,13 +2096,18 @@ class DistributedBookkeeper(Bookkeeper):
                 dead.add(shadow)
                 g.drop_shadow(shadow.self_cell)
             # Mirror hygiene: keep only mirrors the surviving owned
-            # slice still references.
+            # slice still references.  A negative count references too:
+            # a release folded before its create (the create still in
+            # an absorb journal on its way) must cancel on the SAME
+            # shadow object, or the create lands on a fresh one and
+            # pins its target forever (the reference keeps positive
+            # counts only, uigc_tpu/engines/crgc/distributed.py:1783).
             referenced = set()
             for shadow in g.from_set:
                 if shadow in dead or not self._owned(shadow):
                     continue
                 for target, count in shadow.outgoing.items():
-                    if count > 0:
+                    if count != 0:
                         referenced.add(target)
                 sup = shadow.supervisor
                 if sup is not None:

@@ -1,4 +1,9 @@
-"""Copy of ``uigc_tpu/engines/crgc/shadow.py`` (pure Python).
+"""Copy of ``uigc_tpu/engines/crgc/shadow.py`` (pure Python).  One
+addition, off unless a graph sets ``sticky_undo``: an undo fold that also
+covers the shadows that appear, or are reset, after it
+(``merge_undo_log``, ``reset_undo_slice``).  The partitioned collector
+turns it on (``engines/crgc/distributed.py``, ROADMAP.md Queue 3), and
+so does the sanitizer's oracle beside it.
 
 The oracle shadow graph: pointer-based, reference-exact semantics.
 
@@ -12,7 +17,7 @@ entry streams — the same technique the reference author used
 
 from __future__ import annotations
 
-from typing import TYPE_CHECKING, Any, Dict, List, Optional
+from typing import TYPE_CHECKING, Any, Callable, Dict, List, Optional, Set
 
 from ...utils import events
 from .messages import StopMsg, WaveMsg
@@ -119,6 +124,14 @@ def dispatch_kills(cells) -> None:
 class ShadowGraph:
     """The detection structure (reference: ShadowGraph.java:9-299)."""
 
+    #: the sticky undo fold (module note): a partitioned collector folds
+    #: a dead node's undo log while facts about its slice still arrive
+    #: (absorb journals re-shipped after a remap) and resets the slices
+    #: it gains after the fold.  With it on, the fold halts every shadow
+    #: of the dead node whenever it appears, and owes each recipient's
+    #: adjustment until its shadow exists, once per reset of its slice.
+    sticky_undo = False
+
     def __init__(self, context: CrgcContext, local_address: Optional[str] = None):
         self.context = context
         #: address of the node this collector serves; shadows created from
@@ -140,6 +153,11 @@ class ShadowGraph:
         #: -> messages sent); None = off, enabled by the liveness
         #: inspector's attach.  Swept cells' rows are purged.
         self.send_matrix: Optional[Dict[tuple, int]] = None
+        #: sticky undo state: addresses whose actors are halted, the
+        #: folded logs, and the adjustments owed to absent shadows
+        self.dead_locations: Set[str] = set()
+        self._undo_folded: List[Any] = []
+        self._undo_owed: Dict[Any, List[Any]] = {}
 
     # ------------------------------------------------------------- #
     # Shadow lookup
@@ -172,6 +190,12 @@ class ShadowGraph:
         shadow.is_local = False
         self.shadow_map[cell] = shadow
         self.from_set.append(shadow)
+        if self.sticky_undo:
+            if shadow.location in self.dead_locations:
+                shadow.is_halted = True
+            owed = self._undo_owed.pop(cell, None)
+            for field in owed or ():
+                self._apply_undo_field(shadow, field)
         return shadow
 
     # ------------------------------------------------------------- #
@@ -249,6 +273,11 @@ class ShadowGraph:
     def merge_undo_log(self, log) -> None:
         """Halt a dead node's actors and revert its unadmitted effects
         (reference: ShadowGraph.java:158-174)."""
+        if self.sticky_undo:
+            self._undo_folded.append(log)
+            self.dead_locations.add(log.node_address)
+            self.reset_undo_slice(None, log)
+            return
         for shadow in self.from_set:
             if shadow.location == log.node_address:
                 shadow.is_halted = True
@@ -259,6 +288,59 @@ class ShadowGraph:
                     _update_outgoing(
                         shadow.outgoing, self.get_shadow(target_cell), count
                     )
+
+    def _undo_scope(self, cell) -> bool:
+        """Whose adjustments this graph applies (the partitioned graph:
+        its owned slice)."""
+        return True
+
+    def _note_undo_write(self, shadow) -> None:
+        """Called for each shadow the sticky fold writes."""
+
+    def _apply_undo_field(self, shadow, field) -> None:
+        shadow.recv_count += field.message_count
+        for target_cell, count in field.created_refs.items():
+            _update_outgoing(shadow.outgoing, self.get_shadow(target_cell), count)
+        self._note_undo_write(shadow)
+
+    def reset_undo_slice(
+        self, in_slice: Optional[Callable[[Any], bool]], log: Any = None
+    ) -> None:
+        """Apply the folded undo logs (or only ``log``, at its fold) to
+        the cells ``in_slice`` accepts (every cell when None): halt the
+        shadows of dead nodes, and apply each recipient's adjustment to
+        its shadow, or owe it until the shadow is made.  Called with a
+        slice right after that slice's authoritative state was cleared
+        (``reset_partition``), so every cell of it ends with exactly one
+        adjustment per folded log."""
+        if not self.sticky_undo:
+            return
+        if in_slice is not None:
+            for cell in [c for c in self._undo_owed if in_slice(c)]:
+                del self._undo_owed[cell]
+        dead = self.dead_locations
+        for shadow in self.from_set:
+            if shadow.location in dead and not shadow.is_halted and (
+                in_slice is None or in_slice(shadow.self_cell)
+            ) and self._undo_scope(shadow.self_cell):
+                shadow.is_halted = True
+                self._note_undo_write(shadow)
+        for folded in [log] if log is not None else self._undo_folded:
+            for cell, field in folded.admitted.items():
+                if (in_slice is not None and not in_slice(cell)) or (
+                    not self._undo_scope(cell)
+                ):
+                    continue
+                shadow = self.shadow_map.get(cell)
+                if shadow is None:
+                    self._undo_owed.setdefault(cell, []).append(field)
+                else:
+                    self._apply_undo_field(shadow, field)
+
+    def forget_dead(self, address: str) -> None:
+        """A downed address rejoined: actors it hosts from now on are
+        not halted on sight."""
+        self.dead_locations.discard(address)
 
     # ------------------------------------------------------------- #
     # The trace (reference: ShadowGraph.java:201-289)

@@ -1,13 +1,18 @@
-"""Copy of ``uigc_tpu/runtime/wire.py`` (pure Python).  What differs: the
-lazy resolvers of ref types whose modules the port does not have yet.
-``_proxy_cell_class`` (``runtime/node.py``, ROADMAP.md Queue 1 item 7b)
-and ``_entity_ref_class`` (``cluster/sharding.py``, item 8) return a
-private placeholder class that nothing is an instance of, so the pickler
-makes no such token; decoding an ``entity`` token (item 8) or a
-``gwclient`` token (``gateway/session.py``, item 9) raises
-``NotImplementedError``.  The in-process fabric's ``Tombstone`` crosses
-as the ``cell`` token it stands for.  Nothing imports this module at
-load time: a single node never loads it.
+"""Copy of ``uigc_tpu/runtime/wire.py`` (pure Python).  What differs:
+
+- The lazy resolvers of ref types whose modules the port does not have
+  yet.  ``_entity_ref_class`` (``cluster/sharding.py``, ROADMAP.md Queue 1
+  item 8) returns a private placeholder class that nothing is an instance
+  of, so the pickler makes no such token; decoding an ``entity`` token
+  (item 8) or a ``gwclient`` token (``gateway/session.py``, item 9) raises
+  ``NotImplementedError``.  ``_proxy_cell_class`` returns the port's
+  ``runtime/node.py`` ``ProxyCell``, as the reference's does.
+- The in-process fabric's ``Tombstone`` crosses as the ``cell`` token it
+  stands for.
+- One more distributed-collector frame, ``dcut`` (``encode_dcut``): the
+  per-link wave marker of ``engines/crgc/distributed.py``.
+
+Nothing imports this module at load time: a single node never loads it.
 
 Cross-node message serialization: the byte boundary between systems.
 
@@ -80,12 +85,12 @@ _PROXY_CELL = None
 
 def _proxy_cell_class():
     """Lazy, cached ProxyCell class (avoids a circular import at module
-    load and an import-machinery hit per pickled object).  The port has
-    no ``runtime/node.py`` yet (ROADMAP.md Queue 1 item 7b): until it
-    does, this is a placeholder class that nothing is an instance of."""
+    load and an import-machinery hit per pickled object)."""
     global _PROXY_CELL
     if _PROXY_CELL is None:
-        _PROXY_CELL = _unported("ProxyCell")
+        from .node import ProxyCell
+
+        _PROXY_CELL = ProxyCell
     return _PROXY_CELL
 
 
@@ -865,7 +870,7 @@ def decode_gateway_reply(frame: tuple):
 
 DIST_FRAME_KINDS = (
     "dwave", "dmark", "dmack", "dprobe", "dstat", "dfin",
-    "dgate", "dgack", "ddirty", "djnl",
+    "dgate", "dgack", "ddirty", "djnl", "dcut",
 )
 
 
@@ -1130,6 +1135,26 @@ def decode_ddirty(frame: tuple):
     try:
         return str(frame[1])
     except (IndexError, TypeError):
+        return None
+
+
+def encode_dcut(
+    wave: int, fence: int, origin: str, count: int, entry: int
+) -> tuple:
+    """The per-link wave marker (port only): ``origin`` entered ``wave``
+    of era ``fence`` after routing ``count`` stamped deltas of that era
+    to the frame's destination; ``entry`` numbers the sender's wave
+    states, so a wave it restarted in place is told from a retransmit
+    (engines/crgc/distributed.py)."""
+    return ("dcut", int(wave), int(fence), origin, int(count), int(entry))
+
+
+def decode_dcut(frame: tuple):
+    """-> (wave, fence, origin, count, entry) or None."""
+    try:
+        return (int(frame[1]), int(frame[2]), str(frame[3]), int(frame[4]),
+                int(frame[5]))
+    except (IndexError, TypeError, ValueError):
         return None
 
 

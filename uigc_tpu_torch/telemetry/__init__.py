@@ -1,9 +1,10 @@
 """Copy of ``uigc_tpu/telemetry/__init__.py`` (pure Python), held against
-it by ``tests/test_torch_telemetry.py``.  Its ``..runtime.wire`` imports
+it by ``tests/test_torch_telemetry.py`` and, across nodes, by
+``tests/test_torch_node_telemetry.py``.  Its ``..runtime.wire`` imports
 sit behind the ``register_frame_handler`` guard, as in the reference:
-the port's single-node fabric has no such method, so the cross-node
-``snap``, ``tsq`` and ``tsr`` frames stay unregistered until the node
-transport is ported (ROADMAP.md Queue 1 item 7b).
+the cross-node ``snap``, ``tsq`` and ``tsr`` frames register on a
+``NodeFabric`` (``runtime/node.py``), and a single node never loads the
+wire codec.
 
 Telemetry: the exportable observability layer.
 

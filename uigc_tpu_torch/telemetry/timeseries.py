@@ -1,8 +1,8 @@
 """Copy of ``uigc_tpu/telemetry/timeseries.py`` (pure Python), held
-against it by ``tests/test_torch_telemetry.py``.  The ``tsq``/``tsr``
-cluster pull registers only on a fabric with ``register_frame_handler``,
-which the port's single-node fabric does not have (ROADMAP.md Queue 1
-item 7b).
+against it by ``tests/test_torch_telemetry.py`` and
+``tests/test_torch_node_telemetry.py``.  The ``tsq``/``tsr`` cluster
+pull registers on a fabric with ``register_frame_handler``, the node
+transport (``runtime/node.py``).
 
 Telemetry time plane: multi-resolution metric history.
 
