@@ -138,6 +138,35 @@ Phases, each reported on its own lines:
    the A-B link ran on the shm ring.  Phase 1 prints the card's compute
    mode, which must be Default for the children to open contexts.
 
+12. Cluster sharding (``[sharding]`` lines): three NodeFabrics, A, B
+   and C, in this process over localhost TCP, each with a
+   ClusterSharding (32 shards) and its collector on cuda:0, one journal
+   directory under $TMPDIR shared by the three.  SHARD_KEYS keyed
+   entities of one type: each incarnation spawns a held child when it is
+   activated and keeps it in its snapshot; each of SHARD_WORK "work"
+   commands per key adds one to the count and spawns a transient child,
+   tells it one job and releases it; "drop" releases the held child;
+   "probe" answers the count.  The commands go from A and B in turn.
+   (a) ``device`` auto: only A and B are up while the traffic starts, C
+   connects after SHARD_JOIN_ROUND rounds, and a third of the keyspace
+   migrates live under the traffic.  (b) pipelined ``decremental``, the
+   heartbeat on: after the traffic C dies silently (its links cut by the
+   fault plan, its engine crashed), its shards move to A and B and its
+   entities are recovered there from the journal.  Each run: every key
+   answers its full count (in (b) at least what it answered just before
+   the death), the tables settle with no migration pending, then a hold
+   of SHARD_HOLD_WAKES collector wakes on every surviving node in which
+   no held child of a live incarnation stops and every transient child
+   on a survivor is collected; then every key gets "drop" and every held
+   child must be collected.  No incarnation may restore a ref to a child
+   (``cluster/sharding.py`` ``captured_state``); the kernel must launch
+   in every surviving node's collector and every trace of every node
+   must equal trace_marks_np (OracleCheck/HarvestCheck, counted per
+   node).  Each run prints activate_s, rebalance_s (from C's connect,
+   or from its death, to a settled table), collect_s after "drop", the
+   migrations and their latency (shard.migration events), and the
+   wakes, launches and oracle-checked traces per node.
+
 Then one JSON line with the kernel table (the full-walk times; launches
 counted on phase 6, the live collector, with every phase's counts beside
 them) and, last, {"ok": true, "device": {...}}.  Any failed check exits
@@ -148,9 +177,11 @@ import contextlib
 import json
 import os
 import re
+import shutil
 import signal
 import subprocess
 import sys
+import tempfile
 import threading
 import time
 import types
@@ -161,6 +192,7 @@ import torch
 
 from uigc_tpu_torch import AbstractBehavior, Behaviors, Message, NoRefs, PostStop
 from uigc_tpu_torch.analysis.sanitizer import cross_check_distributed
+from uigc_tpu_torch.cluster import ClusterSharding, Entity
 from uigc_tpu_torch.engines.crgc import arrays
 from uigc_tpu_torch.engines.crgc import mesh as mesh_backend
 from uigc_tpu_torch.engines.crgc.collector import Bookkeeper
@@ -173,7 +205,9 @@ from uigc_tpu_torch.ops import trace as trace_ops
 from uigc_tpu_torch.ops.cuda_decremental import DecrementalTracer
 from uigc_tpu_torch.ops.cuda_incremental import EDGE, IncrementalCudaLayout
 from uigc_tpu_torch.parallel import sharded_trace as st
+from uigc_tpu_torch.runtime.behaviors import RawBehavior
 from uigc_tpu_torch.runtime.fabric import Fabric
+from uigc_tpu_torch.runtime.faults import FaultPlan
 from uigc_tpu_torch.runtime.node import NodeFabric
 from uigc_tpu_torch.runtime.remote import RemoteSpawner
 from uigc_tpu_torch.runtime.system import ActorSystem
@@ -261,6 +295,30 @@ PROC_SILENT = {
     "uigc.node.shm-transport": True,
 }
 PROC_HOLD_WAKES = 10
+#: phase 12: SHARD_KEYS keyed entities of one type, SHARD_WORK "work"
+#: commands each (one transient child per command, one held child per
+#: incarnation), sent from A and B in turn; run per SHARD_RUNS (label,
+#: backend, pipelined, what happens to C: "join" = C connects after
+#: SHARD_JOIN_ROUND rounds, "die" = C is up from the start and dies
+#: silently after the traffic, its entities recovered from the journal).
+#: Cut from 3,000 keys, whose two runs took 104 s in a rehearsal on a
+#: CPU (``phase_sharding(errs, device="cpu")``), above the phase's 90 s.
+SHARD_KEYS = 2_000
+SHARD_WORK = 10
+SHARD_JOIN_ROUND = 5
+SHARD_RUNS = (
+    ("sharding/device/auto/join", "device", False, "join"),
+    ("sharding/decremental/pipelined/die", "decremental", True, "die"),
+)
+#: lenient, as phase 11's: three nodes and their collectors share one
+#: interpreter, and a starved heartbeat is a false death verdict
+SHARD_HEARTBEAT = {
+    "uigc.node.heartbeat-interval": 100,
+    "uigc.node.heartbeat-pause": 3000,
+}
+SHARD_HOLD_WAKES = 10
+SHARD_TIMEOUT_S = 120.0
+SHARD_REPROBE_S = 2.0
 KERNEL_SOURCE = "uigc_tpu_torch/csrc/propagate.cu"
 REPLACES = "uigc_tpu/ops/pallas_trace.py:983"
 
@@ -790,7 +848,7 @@ class OracleCheck:
     which the keep-alive window cannot.  Safe across threads: the
     collectors of a multi-node run trace on their own."""
 
-    def __init__(self, cls=arrays.ArrayShadowGraph):
+    def __init__(self, cls=arrays.ArrayShadowGraph, node_of=None):
         self.traces = 0
         self.mismatches = 0
         self.first = None
@@ -798,10 +856,16 @@ class OracleCheck:
         self._plain = cls.compute_marks
         #: the collectors of a multi-node run trace on their own threads
         self._lock = threading.Lock()
+        #: traces per node, named by ``node_of()`` on the tracing thread
+        #: (NodeLaunches.current)
+        self.by_node = Counter()
+        self._node_of = node_of
 
     def judge(self, mark, want):
         with self._lock:
             self.traces += 1
+            if self._node_of is not None:
+                self.by_node[self._node_of()] += 1
             if not np.array_equal(mark, want):
                 self.mismatches += 1
                 if self.first is None:
@@ -1758,6 +1822,10 @@ class NodeLaunches:
         Bookkeeper.on_message = self._on_message
         prop.propagate_words_cuda = self._wrapped
 
+    def current(self):
+        """The node whose collector runs on the calling thread, or None."""
+        return getattr(self._tls, "node", None)
+
 
 def cluster_run(label, backend, pipelined, errs):
     """BASELINE config 4 (run_cluster_recovery) at CLUSTER_WORKERS with
@@ -1903,14 +1971,21 @@ class DRingMaster(AbstractBehavior):
         return self
 
 
-class DistLog:
+class EventLog:
+    """The events of a run: a count per name, and the durations of those
+    that carry one."""
+
     def __init__(self):
         self.counts = Counter()
+        self.durations = {}
         self._lock = threading.Lock()
 
     def __call__(self, name, fields):
         with self._lock:
             self.counts[name] += 1
+            if fields.get("duration_s") is not None:
+                self.durations.setdefault(name, []).append(
+                    fields["duration_s"])
 
     def __enter__(self):
         events.recorder.enable()
@@ -1939,7 +2014,7 @@ def partitioned_run():
     tally = RingTally()
     total = 3 * (DIST_RINGS + DIST_KEPT)
     prop.reset_launches()
-    with DistLog() as log:
+    with EventLog() as log:
         fabric = Fabric()
         systems = [ActorSystem(None, name=f"dn{i}", config=config,
                                fabric=fabric) for i in range(3)]
@@ -2176,6 +2251,413 @@ def phase_procs(errs, device="cuda"):
     return total
 
 
+# --------------------------------------------------------------------- #
+# 12. cluster sharding
+# --------------------------------------------------------------------- #
+
+
+class ShardTally:
+    """What phase 12's actors did, per node (system name): transient
+    children spawned and stopped, the held children alive and those
+    stopped, and the incarnations that were handed a ref to a child in
+    their restored state (``captured_state`` hands None)."""
+
+    def __init__(self):
+        self._lock = threading.Lock()
+        self.transient_spawned = Counter()
+        self.transient_stopped = Counter()
+        self.held_stopped = Counter()
+        self.held_live = {}
+        self.restored_refs = 0
+
+    def transient(self, node, stopped):
+        with self._lock:
+            (self.transient_stopped if stopped
+             else self.transient_spawned)[node] += 1
+
+    def held(self, node, path, alive):
+        with self._lock:
+            live = self.held_live.setdefault(node, set())
+            if alive:
+                live.add(path)
+            else:
+                live.discard(path)
+                self.held_stopped[node] += 1
+
+    def restored_ref(self):
+        with self._lock:
+            self.restored_refs += 1
+
+    def sums(self, nodes):
+        """(transients spawned, transients stopped, held stopped, held
+        alive) over the system names ``nodes``."""
+        with self._lock:
+            return (sum(self.transient_spawned[n] for n in nodes),
+                    sum(self.transient_stopped[n] for n in nodes),
+                    sum(self.held_stopped[n] for n in nodes),
+                    sum(len(self.held_live.get(n, ())) for n in nodes))
+
+
+class SJob(NoRefs):
+    pass
+
+
+class STransient(AbstractBehavior):
+    """The child of one "work" command: told one job, released at once."""
+
+    def __init__(self, context, tally):
+        super().__init__(context)
+        self.tally = tally
+
+    def on_message(self, msg):
+        return self
+
+    def on_signal(self, signal):
+        if signal is PostStop:
+            self.tally.transient(self.context.system.name, True)
+        return self
+
+
+class SHeld(AbstractBehavior):
+    """The child an incarnation spawns when it is activated and keeps."""
+
+    def __init__(self, context, tally):
+        super().__init__(context)
+        self.tally = tally
+
+    def on_message(self, msg):
+        return self
+
+    def on_signal(self, signal):
+        if signal is PostStop:
+            self.tally.held(self.context.system.name,
+                            self.context.cell.path, False)
+        return self
+
+
+class SEntity(Entity):
+    """Phase 12's entity: a counter, with a held child kept in its
+    snapshot and a transient child per "work" command."""
+
+    def __init__(self, ctx, key, state, tally):
+        super().__init__(ctx, key)
+        self.tally = tally
+        state = state or {}
+        self.count = state.get("count", 0)
+        self.held = state.get("held")
+        if self.held is not None:
+            tally.restored_ref()
+        else:
+            self.held = ctx.spawn(
+                Behaviors.setup(lambda c: SHeld(c, tally)), "held")
+            tally.held(ctx.system.name, self.held.target.path, True)
+
+    def receive(self, msg):
+        ctx = self.context
+        if msg[0] == "work":
+            self.count += 1
+            child = ctx.spawn_anonymous(
+                Behaviors.setup(lambda c: STransient(c, self.tally)))
+            self.tally.transient(ctx.system.name, False)
+            child.tell(SJob(), ctx)
+            ctx.release(child)
+        elif msg[0] == "drop":
+            if self.held is not None:
+                ctx.release(self.held)
+                self.held = None
+        elif msg[0] == "probe":
+            msg[1].tell(("probed", self.key, self.count))
+        return self
+
+    def snapshot_state(self):
+        return {"count": self.count, "held": self.held}
+
+
+class SProbeSink(RawBehavior):
+    def __init__(self):
+        self.got = {}
+        self._lock = threading.Lock()
+
+    def on_message(self, msg):
+        if isinstance(msg, tuple) and msg and msg[0] == "probed":
+            with self._lock:
+                self.got[msg[1]] = msg[2]
+
+    def snapshot(self):
+        with self._lock:
+            return dict(self.got)
+
+
+class ShardNode:
+    """One node of phase 12: a NodeFabric, its system and its cluster."""
+
+    def __init__(self, name, config, plan, tally):
+        self.fabric = NodeFabric(fault_plan=plan)
+        self.system = ActorSystem(None, name=name, config=config,
+                                  fabric=self.fabric)
+        self.port = self.fabric.listen()
+        self.address = self.system.address
+        self.cluster = ClusterSharding.attach(self.system)
+        self.region = self.cluster.start(
+            "sentity", lambda ctx, key, state: SEntity(ctx, key, state,
+                                                       tally))
+
+    def wakes(self):
+        return self.system.engine.bookkeeper.wakes
+
+    def table(self):
+        return sorted(self.cluster.table_snapshot().assignments.items())
+
+
+def shard_converged(nodes):
+    """Every node sees exactly ``nodes`` as members, no handoff pending,
+    one table."""
+    addresses = sorted(n.address for n in nodes)
+    return (all(sorted(n.cluster.members()) == addresses for n in nodes)
+            and all(n.cluster.migrations.pending_count() == 0 for n in nodes)
+            and len({tuple(n.table()) for n in nodes}) == 1)
+
+
+def shard_probe(node, keys, expect, at_least=False):
+    """Probe every key from ``node`` until it answers ``expect[key]`` (or
+    more, with ``at_least``), within SHARD_TIMEOUT_S; the answers.  A key
+    is probed again only after SHARD_REPROBE_S without the answer (a
+    probe may overtake a command sent from another node), so the probes
+    do not flood the mailboxes they wait on."""
+    sink = SProbeSink()
+    cell = node.system.spawn_system_raw(sink, f"probe-{time.monotonic_ns()}")
+    deadline = time.monotonic() + SHARD_TIMEOUT_S
+    sent = {}
+    while time.monotonic() < deadline:
+        got = sink.snapshot()
+        due = [k for k in keys if k not in got or (
+            got[k] < expect[k] if at_least else got[k] != expect[k])]
+        if not due:
+            break
+        now = time.monotonic()
+        for k in due:
+            if now - sent.get(k, -SHARD_REPROBE_S) >= SHARD_REPROBE_S:
+                sent[k] = now
+                node.cluster.entity_ref("sentity", k).tell(("probe", cell))
+        time.sleep(0.05)
+    return sink.snapshot()
+
+
+def shard_drive(label, fate, config, keys, nodes, tally):
+    """The traffic, the fate of C and the checks of one phase-12 run on
+    ``nodes`` (filled as the nodes are built, so the caller can stop
+    them).  Returns the run's numbers."""
+    plan = FaultPlan(12)
+    n_keys = len(keys)
+    full = {k: SHARD_WORK for k in keys}
+    a = ShardNode("shardA", config, plan, tally)
+    nodes.append(a)
+    b = ShardNode("shardB", config, plan, tally)
+    nodes.append(b)
+    a.fabric.connect("127.0.0.1", b.port)
+    if fate == "die":
+        c = ShardNode("shardC", config, plan, tally)
+        nodes.append(c)
+        a.fabric.connect("127.0.0.1", c.port)
+        b.fabric.connect("127.0.0.1", c.port)
+    wait_for(f"{label}: the first table", lambda: shard_converged(nodes),
+             SHARD_TIMEOUT_S)
+
+    def send_round(r):
+        for i, k in enumerate(keys):
+            sender = (a, b)[(r * n_keys + i) % 2]
+            sender.cluster.entity_ref("sentity", k).tell(("work",))
+
+    t0 = time.perf_counter()
+    send_round(0)
+    wait_for(f"{label}: activation", lambda: sum(
+        n.region.active_count() for n in nodes) == n_keys, SHARD_TIMEOUT_S)
+    out = {"activate_s": time.perf_counter() - t0}
+    for r in range(1, SHARD_WORK):
+        if fate == "join" and r == SHARD_JOIN_ROUND:
+            c = ShardNode("shardC", config, plan, tally)
+            nodes.append(c)
+            t_join = time.perf_counter()
+            a.fabric.connect("127.0.0.1", c.port)
+            b.fabric.connect("127.0.0.1", c.port)
+        send_round(r)
+    if fate == "join":
+        wait_for(f"{label}: the rebalance", lambda: shard_converged(nodes)
+                 and c.region.active_count() > 0, SHARD_TIMEOUT_S)
+        out["rebalance_s"] = time.perf_counter() - t_join
+        out["homed_on_c"] = sum(a.cluster.home_of(k) == c.address
+                                for k in keys)
+        counts = shard_probe(a, keys, full)
+        check(counts == full, f"{label}: "
+              f"{sum(counts.get(k) != SHARD_WORK for k in keys)} keys short "
+              f"of {SHARD_WORK}")
+        survivors = list(nodes)
+    else:
+        pre = shard_probe(a, keys, full)
+        check(pre == full, f"{label}: before the death "
+              f"{sum(pre.get(k) != SHARD_WORK for k in keys)} keys short of "
+              f"{SHARD_WORK}")
+        homed_c = {k for k in keys if a.cluster.home_of(k) == c.address}
+        out["homed_on_c"] = len(homed_c)
+        t_death = time.perf_counter()
+        plan.isolate(c.address)
+        c.system.engine.on_crash()
+        survivors = [a, b]
+        wait_for(f"{label}: the table without C",
+                 lambda: shard_converged(survivors), SHARD_TIMEOUT_S)
+        out["rebalance_s"] = time.perf_counter() - t_death
+        counts = shard_probe(a, keys, pre, at_least=True)
+        short = [k for k in keys if counts.get(k, -1) < pre[k]]
+        check(not short, f"{label}: {len(short)} keys lost acked commands "
+              f"after C died, e.g. {short[:3]}")
+        moved = [k for k in keys if counts[k] != pre[k] and k not in homed_c]
+        check(not moved, f"{label}: {len(moved)} keys homed on a survivor "
+              f"changed count")
+    names = [n.system.name for n in survivors]
+    owners = set(a.cluster.table_snapshot().assignments.values())
+    check(owners <= {n.address for n in survivors},
+          f"{label}: a shard is owned outside the survivors: {owners}")
+
+    # The hold: SHARD_HOLD_WAKES wakes on every survivor, no held child
+    # of a live incarnation stops, every transient child on a survivor
+    # is collected.
+    held_stopped0 = tally.sums(names)[2]
+    w0 = {n.system.name: n.wakes() for n in survivors}
+
+    def held_enough():
+        spawned, stopped, _, _ = tally.sums(names)
+        return stopped == spawned and all(
+            n.wakes() - w0[n.system.name] >= SHARD_HOLD_WAKES
+            for n in survivors)
+
+    wait_for(f"{label}: transient children on the survivors collected",
+             held_enough, SHARD_TIMEOUT_S)
+    spawned, stopped, held_stopped, held_alive = tally.sums(names)
+    active = sum(n.region.active_count() for n in survivors)
+    check(held_stopped == held_stopped0,
+          f"{label}: {held_stopped - held_stopped0} held children of live "
+          f"incarnations stopped in the hold")
+    check(held_alive == active == n_keys,
+          f"{label}: {held_alive} held children alive for {active} "
+          f"incarnations of {n_keys} keys")
+    check(tally.restored_refs == 0,
+          f"{label}: {tally.restored_refs} incarnations restored a ref to "
+          f"a stopped child")
+    out["transient"] = (spawned, stopped)
+    out["hold_wakes"] = {n.system.name: n.wakes() - w0[n.system.name]
+                         for n in survivors}
+
+    t0 = time.perf_counter()
+    for k in keys:
+        a.cluster.entity_ref("sentity", k).tell(("drop",))
+    wait_for(f"{label}: held children collected after drop",
+             lambda: tally.sums(names)[3] == 0, SHARD_TIMEOUT_S)
+    out["collect_s"] = time.perf_counter() - t0
+    check(all(n.cluster.migrations.pending_count() == 0 for n in survivors),
+          f"{label}: migrations pending")
+    check(a.table() == b.table(), f"{label}: A's and B's tables differ")
+    out["names"] = names
+    out["wakes"] = {n.system.name: n.wakes() for n in nodes}
+    out["migrations"] = sum(n.cluster.migrations.completed for n in nodes)
+    out["recovered"] = sum(n.cluster.journal.recovered_entities
+                           for n in survivors)
+    return out
+
+
+def shard_run(label, backend, pipelined, fate, device, n_keys, errs):
+    """One run of phase 12 (the module note).  Returns the launches per
+    form of its collectors."""
+    tally = ShardTally()
+    journal_dir = tempfile.mkdtemp(prefix="uigc-shard-")
+    config = {
+        "uigc.crgc.shadow-graph": backend,
+        "uigc.crgc.device": device,
+        "uigc.crgc.trace-mode": "auto",
+        "uigc.crgc.pipelined": pipelined,
+        "uigc.crgc.wakeup-interval": 10,
+        "uigc.crgc.egress-finalize-interval": 5,
+        "uigc.crgc.num-nodes": 3,
+        "uigc.cluster.tick-interval": 40,
+        "uigc.cluster.handoff-retry": 120,
+        "uigc.cluster.journal-dir": journal_dir,
+    }
+    if fate == "join":
+        # The hold on a gained shard outlasts a handoff under load (as in
+        # tests/test_cluster.py's rebalance under traffic).
+        config["uigc.cluster.hold-timeout"] = 15000
+    else:
+        config.update(SHARD_HEARTBEAT)
+    keys = [f"key-{i}" for i in range(n_keys)]
+    nodes = []
+    prop.reset_launches()
+    try:
+        with LaunchCapture() as cap, NodeLaunches() as nl, \
+                OracleCheck(node_of=nl.current) as oc, HarvestCheck(oc), \
+                EventLog() as log:
+            try:
+                r = shard_drive(label, fate, config, keys, nodes, tally)
+            finally:
+                # inside the counters: the last wakes' launches count in
+                # both
+                for n in nodes:
+                    try:
+                        n.system.terminate(timeout_s=5.0)
+                    except Exception:
+                        pass
+    except (AssertionError, RuntimeError) as exc:
+        raise SmokeFailure(f"sharding {label}: {exc} (oracle: "
+                           f"{oc.mismatches} of {oc.traces} traces differ; "
+                           f"first {oc.first})") from exc
+    finally:
+        shutil.rmtree(journal_dir, ignore_errors=True)
+    launches = dict(prop.launches)
+    by_node = dict(nl.by_node)
+    traced = dict(oc.by_node)
+    check(oc.mismatches == 0,
+          f"sharding {label}: {oc.mismatches} of {oc.traces} traces differ "
+          f"from trace_marks_np; first {oc.first}")
+    for name in r["names"]:
+        check(traced.get(name, 0) > 0,
+              f"sharding {label}: no trace of {name} was checked: {traced}")
+    if device == "cuda":
+        check(None not in by_node and sum(by_node.values()) == sum(
+            launches.values()), f"sharding {label}: launches outside a "
+              f"collector: {by_node} against {launches}")
+        for name in r["names"]:
+            check(by_node.get(name, 0) > 0,
+                  f"sharding {label}: {name}'s collector never launched: "
+                  f"{by_node}")
+    lat = log.durations.get(events.SHARD_MIGRATION, [])
+    check(len(lat) == r["migrations"], f"sharding {label}: {len(lat)} "
+          f"migration events for {r['migrations']} migrations")
+    say(f"[sharding] {label} keys={n_keys} work={SHARD_WORK} "
+        f"actors={n_keys * (SHARD_WORK + 2)} homed_on_c={r['homed_on_c']} "
+        f"activate_s={r['activate_s']:.3f} "
+        f"rebalance_s={r['rebalance_s']:.3f} "
+        f"collect_s={r['collect_s']:.3f} "
+        f"transient={r['transient'][0]}/{r['transient'][1]} "
+        f"migrations={r['migrations']} "
+        f"migration_mean_s={(np.mean(lat) if lat else 0.0):.4f} "
+        f"migration_max_s={(max(lat) if lat else 0.0):.4f} "
+        f"recovered={r['recovered']} hold_wakes={r['hold_wakes']} "
+        f"wakes={r['wakes']} launches={launches} launches_by_node={by_node} "
+        f"oracle_traces_by_node={traced}")
+    if device == "cuda":
+        live_kernel_checks(cap.kept, errs, f"sharding {label}")
+    return launches
+
+
+def phase_sharding(errs, device="cuda", n_keys=SHARD_KEYS):
+    """Phase 12.  Returns the launches per form over its runs."""
+    total = {"propagate": 0, "propagate_gated": 0}
+    for label, backend, pipelined, fate in SHARD_RUNS:
+        for form, count in shard_run(label, backend, pipelined, fate,
+                                     device, n_keys, errs).items():
+            total[form] += count
+    say(f"[sharding] launches={total}")
+    return total
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; nothing was run",
@@ -2271,6 +2753,10 @@ def main():
     procs_launches = phase_procs(errs)
     elapsed("phase 11")
 
+    torch.cuda.empty_cache()
+    sharding_launches = phase_sharding(errs)
+    elapsed("phase 12")
+
     for form, row in kernels.items():
         row["launches"] = live_launches[form]
         row["launches_by_phase"] = {"trace_10M": main_launches[form],
@@ -2280,7 +2766,8 @@ def main():
                                     "mesh": mesh_launches[form],
                                     "telemetry": telemetry_launches[form],
                                     "multi_node": cluster_launches[form],
-                                    "multi_process": procs_launches[form]}
+                                    "multi_process": procs_launches[form],
+                                    "sharding": sharding_launches[form]}
         row["max_abs_err"] = errs[form]
     order = ("name", "route", "source", "replaces", "launches",
              "launches_by_phase", "max_abs_err", "ms", "plain_ms", "bound_ms",

@@ -56,7 +56,10 @@ MODULES = ("utils/validation.py", "utils/events.py", "utils/platform.py",
            "telemetry/inspect.py", "runtime/faults.py", "runtime/schema.py",
            "runtime/wire.py", "runtime/remote.py", "parallel/partition.py",
            "engines/crgc/distributed.py", "runtime/heartbeat.py",
-           "runtime/shm_ring.py", "runtime/node.py", "models/nodeproc.py")
+           "runtime/shm_ring.py", "runtime/node.py", "models/nodeproc.py",
+           "cluster/__init__.py", "cluster/sharding.py",
+           "cluster/migration.py", "cluster/passivation.py",
+           "cluster/journal.py", "cluster/membership.py")
 
 
 def imported_roots(path):
@@ -112,6 +115,8 @@ def test_port_imports_with_jax_blocked():
         "import uigc_tpu_torch.runtime.heartbeat\n"
         "import uigc_tpu_torch.runtime.shm_ring\n"
         "import uigc_tpu_torch.models.nodeproc\n"
+        "import uigc_tpu_torch.cluster\n"
+        "from uigc_tpu_torch import ClusterSharding, Entity, EntityRef\n"
         "from uigc_tpu_torch.models import run_cluster_recovery\n"
         "from uigc_tpu_torch import ActorSystem, ActorTestKit\n"
         "assert 'jax' not in [m.split('.')[0] for m in sys.modules\n"
@@ -145,20 +150,44 @@ def unported_raises():
 
 
 def test_only_later_items_still_raise():
-    """The multi-node fabric, the wire codecs, the distributed collector
-    and the TCP node transport are ported: what still raises is the
-    cluster's and the gateway's tokens in the wire codec (ROADMAP.md
-    Queue 1 items 8, 9).  The wire codec's ProxyCell resolver is the
-    node transport's class, and no message names item 7b."""
+    """The multi-node fabric, the wire codecs, the distributed collector,
+    the TCP node transport and cluster sharding are ported: what still
+    raises is the gateway's token in the wire codec (ROADMAP.md Queue 1
+    item 9).  The wire codec's ProxyCell and EntityRef resolvers are the
+    port's classes, and no message names item 7b or 8."""
     raises = unported_raises()
     items = sorted(re.search(r"Queue 1 item (\w+)", msg).group(1)
                    for _, msg in raises)
-    assert items == ["8", "9"], raises
+    assert items == ["9"], raises
     assert {f for f, _ in raises} == {"uigc_tpu_torch/runtime/wire.py"}
+    from uigc_tpu_torch.cluster import sharding
     from uigc_tpu_torch.runtime import node, wire
 
     assert wire._proxy_cell_class() is node.ProxyCell
+    assert wire._entity_ref_class() is sharding.EntityRef
     assert not any("7b" in path.read_text() for path in PORT_FILES)
+    assert not any(re.search(r"Queue 1 item 8\b", path.read_text())
+                   for path in PORT_FILES)
+
+
+def test_package_import_leaves_the_cluster_and_the_wire_unloaded():
+    """``import uigc_tpu_torch`` binds ClusterSharding, Entity and
+    EntityRef at first use: the package import loads neither the
+    cluster nor the wire codec, and the names are the cluster's."""
+    code = (
+        "import sys\n"
+        "import uigc_tpu_torch as u\n"
+        "assert 'uigc_tpu_torch.cluster' not in sys.modules\n"
+        "assert 'uigc_tpu_torch.runtime.wire' not in sys.modules\n"
+        "from uigc_tpu_torch.cluster import sharding\n"
+        "assert u.ClusterSharding is sharding.ClusterSharding\n"
+        "assert u.Entity is sharding.Entity\n"
+        "assert u.EntityRef is sharding.EntityRef\n"
+        "print('LAZY OK')\n"
+    )
+    out = subprocess.run([sys.executable, "-c", code], cwd=REPO,
+                         capture_output=True, text=True, timeout=120)
+    assert "LAZY OK" in out.stdout, out.stderr[-2000:]
 
 
 def test_entry_points_raise_without_a_card(monkeypatch):

@@ -19,10 +19,13 @@ several cards (``parallel/``), the kernel running on every shard.
 Several systems in one process form a cluster over the in-process
 ``runtime.fabric.Fabric``, each collector folding its peers' deltas into
 a replica it traces, or, with ``uigc.crgc.distributed``, owning one
-partition of the graph (``engines/crgc/distributed.py``).
+partition of the graph (``engines/crgc/distributed.py``).  Keyed
+entities are placed, migrated, passivated and journaled across nodes by
+``ClusterSharding`` (``cluster/``).
 
-The public API mirrors ``uigc_tpu``'s, without cluster sharding (not
-ported yet).
+The public API mirrors ``uigc_tpu``'s.  ``ClusterSharding``, ``Entity``
+and ``EntityRef`` are bound at first use (module ``__getattr__``), so
+importing the package does not load the cluster or the wire codec.
 """
 
 from .config import Config
@@ -37,6 +40,17 @@ from .runtime.testkit import ActorTestKit, TestProbe
 #: (reference: package.scala:7-9).
 ActorRef = Refob
 
+_CLUSTER_NAMES = ("ClusterSharding", "Entity", "EntityRef")
+
+
+def __getattr__(name):
+    if name in _CLUSTER_NAMES:
+        from . import cluster
+
+        return getattr(cluster, name)
+    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")
+
+
 __version__ = "0.1.0"
 
 __all__ = [
@@ -47,7 +61,10 @@ __all__ = [
     "ActorSystem",
     "ActorTestKit",
     "Behaviors",
+    "ClusterSharding",
     "Config",
+    "Entity",
+    "EntityRef",
     "GCMessage",
     "Message",
     "NoRefs",

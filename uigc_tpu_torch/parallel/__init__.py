@@ -1,6 +1,6 @@
-"""Port of ``uigc_tpu/parallel/``: the sharded trace (``sharded_trace.py``).
-``partition.py`` belongs to the distributed collector and is not ported
-yet (ROADMAP.md Queue 1 item 7)."""
+"""Port of ``uigc_tpu/parallel/``: the sharded trace (``sharded_trace.py``)
+and the distributed collector's placement (``partition.py``, imported by
+its users, not here)."""
 
 from .sharded_trace import (
     Mesh,

@@ -1,9 +1,4 @@
-"""Copy of ``uigc_tpu/parallel/partition.py`` (pure Python).  What differs:
-the reference imports ``rendezvous_assign`` and ``shard_of`` from
-``cluster/sharding.py``, which needs the cell, the fabric and the wire
-codec; the port keeps its own copies of those two functions and their
-``_stable_hash`` (``uigc_tpu/cluster/sharding.py:100-127``) here, until
-cluster sharding is ported (ROADMAP.md Queue 1 item 8) and they move there.
+"""Copy of ``uigc_tpu/parallel/partition.py`` (pure Python).
 
 Cross-node shadow-graph partitioning: who owns which slice.
 
@@ -32,40 +27,9 @@ there is no coordinator state to gossip and nothing to lock.
 
 from __future__ import annotations
 
-import functools
-import hashlib
 from typing import Any, Dict, List, Optional, Tuple
 
-
-@functools.lru_cache(maxsize=1 << 16)
-def _stable_hash(text: str) -> int:
-    """64-bit mixing hash, stable across processes (the builtin hash is
-    salted; CRC is too linear for rendezvous scoring — one member's
-    suffix dominates every shard).  Memoized: routing hashes the same
-    entity keys over and over."""
-    return int.from_bytes(
-        hashlib.blake2b(text.encode(), digest_size=8).digest(), "big"
-    )
-
-
-def shard_of(key: str, num_shards: int) -> int:
-    """Stable key -> shard mapping; every node and every process must
-    agree."""
-    return _stable_hash(key) % num_shards
-
-
-def rendezvous_assign(members: List[str], num_shards: int) -> Dict[int, str]:
-    """Highest-random-weight assignment of shards to members: each
-    shard lands on the member with the max hash(shard|member).  Pure and
-    deterministic in the member set; removing one member moves only that
-    member's shards (minimal churn), which is what keeps a rebalance
-    from migrating the whole keyspace."""
-    if not members:
-        return {}
-    out: Dict[int, str] = {}
-    for shard in range(num_shards):
-        out[shard] = max(members, key=lambda m: _stable_hash(f"{shard}|{m}"))
-    return out
+from ..cluster.sharding import rendezvous_assign, shard_of
 
 
 def cell_key(cell: Any) -> Tuple[str, int]:

@@ -14,10 +14,9 @@
   reference's plain delta), and ``_on_frame`` rebuilds a ``DDelta`` when
   all three are present and well-formed.  A plain ``DeltaMsg`` keeps the
   reference's three-element frame, byte for byte.
-- The lazy imports resolve to the port's modules; ``drain()`` reaches a
-  cluster only through ``getattr(system, "cluster", None)``, as in the
-  reference (the port has no cluster sharding yet: ROADMAP.md Queue 1
-  item 8).
+- The lazy imports resolve to the port's modules; ``drain()`` reaches
+  the cluster (``cluster/sharding.py``) through ``getattr(system,
+  "cluster", None)``, as in the reference.
 
 Cross-process node transport: one ActorSystem per OS process, linked
 over TCP sockets.

@@ -1,12 +1,11 @@
 """Copy of ``uigc_tpu/runtime/wire.py`` (pure Python).  What differs:
 
-- The lazy resolvers of ref types whose modules the port does not have
-  yet.  ``_entity_ref_class`` (``cluster/sharding.py``, ROADMAP.md Queue 1
-  item 8) returns a private placeholder class that nothing is an instance
-  of, so the pickler makes no such token; decoding an ``entity`` token
-  (item 8) or a ``gwclient`` token (``gateway/session.py``, item 9) raises
-  ``NotImplementedError``.  ``_proxy_cell_class`` returns the port's
-  ``runtime/node.py`` ``ProxyCell``, as the reference's does.
+- The lazy ref-type resolvers return the port's classes
+  (``_proxy_cell_class``: ``runtime/node.py`` ``ProxyCell``;
+  ``_entity_ref_class``: ``cluster/sharding.py`` ``EntityRef``), and an
+  ``entity`` token decodes through the receiving system's cluster, as in
+  the reference.  Decoding a ``gwclient`` token (``gateway/session.py``,
+  ROADMAP.md Queue 1 item 9) raises ``NotImplementedError``.
 - The in-process fabric's ``Tombstone`` crosses as the ``cell`` token it
   stands for.
 - One more distributed-collector frame, ``dcut`` (``encode_dcut``): the
@@ -74,12 +73,6 @@ def _resolve(fabric: "Fabric", address: str, uid: int):
     return cell
 
 
-def _unported(name: str) -> type:
-    """A private class that no object is an instance of: the stand-in for
-    a ref type whose module the port does not have yet."""
-    return type(f"_Unported{name}", (), {"__slots__": ()})
-
-
 _PROXY_CELL = None
 
 
@@ -98,11 +91,11 @@ _ENTITY_REF = None
 
 
 def _entity_ref_class():
-    """Placeholder until cluster sharding is ported (ROADMAP.md Queue 1
-    item 8): nothing is an instance of it, so no entity token is made."""
     global _ENTITY_REF
     if _ENTITY_REF is None:
-        _ENTITY_REF = _unported("EntityRef")
+        from ..cluster.sharding import EntityRef
+
+        _ENTITY_REF = EntityRef
     return _ENTITY_REF
 
 
@@ -220,11 +213,14 @@ class _Unpickler(pickle.Unpickler):
     def persistent_load(self, pid):
         if pid[0] == "entity":
             _, type_name, key = pid
-            raise NotImplementedError(
-                f"entity ref {type_name}/{key}: decoding an entity token "
-                "needs cluster/sharding.py, which the port does not have "
-                "yet: ROADMAP.md Queue 1 item 8"
-            )
+            system = getattr(self._fabric, "system", None)
+            cluster = getattr(system, "cluster", None)
+            if cluster is None:
+                raise LookupError(
+                    f"entity ref {type_name}/{key}: no cluster sharding "
+                    "attached to the receiving system"
+                )
+            return cluster.entity_ref(type_name, key)
         if pid[0] == "gwclient":
             _, address, conn_id = pid
             return _client_ref_class()(address, conn_id, self._fabric)
