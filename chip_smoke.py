@@ -167,6 +167,39 @@ Phases, each reported on its own lines:
    migrations and their latency (shard.migration events), and the
    wakes, launches and oracle-checked traces per node.
 
+13. The ingress gateway (``[gateway]`` lines): real TCP clients talk to
+   a proxy-only gateway NodeFabric (gateway/gateway.py IngressGateway)
+   in front of data NodeFabrics, all in this process, every collector on
+   cuda:0.  GATEWAY_KEYS keyed entities of phase 12's shape (a held
+   child per incarnation, a transient child per "work" command) answer
+   the gateway's ``("gw-cmd", ref, seq, cmd)`` with ``ref.tell(("ack",
+   seq, count))``, so the collectors have garbage to find while the
+   clients see only the gateway.  The configuration is
+   tools/ingress_bench.py's base_config with phase 12's heartbeat.  (a)
+   ``device`` auto, two data nodes: GATEWAY_CONNECTIONS concurrent
+   connections, each CONNECT -> AUTH_OK, held at once (the gateway's
+   count and its uigc_gateway_connections gauge read them all); a fill
+   of GATEWAY_FILL "work" commands a key from GATEWAY_FILL_TENANTS
+   tenants under their quota; then the storm: GATEWAY_STORM_CLIENTS
+   clients of one tenant drive 10x its GATEWAY_CAPACITY msgs/s quota for
+   GATEWAY_STORM_S over the keyspace, and every send must resolve to an
+   ACK or a clean, seq-addressed ERROR.  (b) pipelined ``decremental``,
+   three data nodes and a shared journal, no quota: a FLOOD client fault
+   burns on the first accept, GATEWAY_PUMP_CLIENTS clients pump over the
+   keyspace, one data node dies silently after GATEWAY_DIE_AFTER_S (and
+   once its collector has launched the kernel), and
+   every send resolves after bounded retries; the dead node's entities
+   are recovered from the journal.  Each run: every key probed through
+   the gateway covers its highest ACK (acked_then_lost 0), then a hold
+   of SHARD_HOLD_WAKES wakes on every surviving data node in which no
+   held child stops and every transient child is collected, then "drop"
+   to every key and every held child collected; the kernel launched in
+   every data node's collector and every trace of every node equal to
+   trace_marks_np.  Each run prints connect/s, the admitted p50/p99 ms,
+   the gateway's stats and its uigc_gateway_connections gauge; (b), with
+   telemetry metrics on the gateway node, also uigc_gateway_shed_total,
+   which must equal the gateway's sheds.
+
 Then one JSON line with the kernel table (the full-walk times; launches
 counted on phase 6, the live collector, with every phase's counts beside
 them) and, last, {"ok": true, "device": {...}}.  Any failed check exits
@@ -177,8 +210,11 @@ import contextlib
 import json
 import os
 import re
+import resource
 import shutil
 import signal
+import socket
+import struct
 import subprocess
 import sys
 import tempfile
@@ -196,6 +232,8 @@ from uigc_tpu_torch.cluster import ClusterSharding, Entity
 from uigc_tpu_torch.engines.crgc import arrays
 from uigc_tpu_torch.engines.crgc import mesh as mesh_backend
 from uigc_tpu_torch.engines.crgc.collector import Bookkeeper
+from uigc_tpu_torch.gateway import IngressGateway
+from uigc_tpu_torch.gateway import protocol as gw_protocol
 from uigc_tpu_torch.models import nodeproc, run_cluster_recovery, run_rings, run_tree
 from uigc_tpu_torch.models.graphgen import powerlaw_actor_graph
 from uigc_tpu_torch.ops import cuda_trace as ct
@@ -207,13 +245,14 @@ from uigc_tpu_torch.ops.cuda_incremental import EDGE, IncrementalCudaLayout
 from uigc_tpu_torch.parallel import sharded_trace as st
 from uigc_tpu_torch.runtime.behaviors import RawBehavior
 from uigc_tpu_torch.runtime.fabric import Fabric
-from uigc_tpu_torch.runtime.faults import FaultPlan
+from uigc_tpu_torch.runtime.faults import FLOOD, FaultPlan
 from uigc_tpu_torch.runtime.node import NodeFabric
 from uigc_tpu_torch.runtime.remote import RemoteSpawner
 from uigc_tpu_torch.runtime.system import ActorSystem
 from uigc_tpu_torch.telemetry import inspect as tel_inspect
 from uigc_tpu_torch.telemetry import (DeviceObservatory, EventMetricsBridge,
-                                      WakeProfiler, prometheus_text)
+                                      MetricsRegistry, WakeProfiler,
+                                      install_system_gauges, prometheus_text)
 from uigc_tpu_torch.utils import events
 from uigc_tpu_torch.utils.platform import require_hopper
 
@@ -319,6 +358,27 @@ SHARD_HEARTBEAT = {
 SHARD_HOLD_WAKES = 10
 SHARD_TIMEOUT_S = 120.0
 SHARD_REPROBE_S = 2.0
+#: phase 13: GATEWAY_KEYS keyed entities of phase 12's shape behind a
+#: proxy-only gateway, driven by real TCP clients, per GATEWAY_RUNS
+#: (label, backend, pipelined, data nodes, what the run does).  The
+#: configuration is tools/ingress_bench.py's base_config with phase 12's
+#: heartbeat; the connection count and the storm (4 clients at 10x a
+#: 150 msgs/s tenant quota for 4 s) are that bench's defaults.
+GATEWAY_KEYS = 2_000
+GATEWAY_CONNECTIONS = 600
+GATEWAY_FILL = 5
+GATEWAY_FILL_TENANTS = 8
+GATEWAY_CAPACITY = 150
+GATEWAY_STORM_S = 4.0
+GATEWAY_STORM_CLIENTS = 4
+GATEWAY_PUMP_CLIENTS = 3
+GATEWAY_DIE_AFTER_S = 2.0
+GATEWAY_RUNS = (
+    ("gateway/device/auto/overload", "device", False, 2, "overload"),
+    ("gateway/decremental/pipelined/die", "decremental", True, 3, "die"),
+)
+GATEWAY_TIMEOUT_S = 120.0
+GATEWAY_RETRY_ROUNDS = 8
 KERNEL_SOURCE = "uigc_tpu_torch/csrc/propagate.cu"
 REPLACES = "uigc_tpu/ops/pallas_trace.py:983"
 
@@ -2389,9 +2449,11 @@ class SProbeSink(RawBehavior):
 
 
 class ShardNode:
-    """One node of phase 12: a NodeFabric, its system and its cluster."""
+    """One node of phases 12 and 13: a NodeFabric, its system and its
+    cluster, with a region of ``entity``."""
 
-    def __init__(self, name, config, plan, tally):
+    def __init__(self, name, config, plan, tally, type_name="sentity",
+                 entity=SEntity):
         self.fabric = NodeFabric(fault_plan=plan)
         self.system = ActorSystem(None, name=name, config=config,
                                   fabric=self.fabric)
@@ -2399,8 +2461,8 @@ class ShardNode:
         self.address = self.system.address
         self.cluster = ClusterSharding.attach(self.system)
         self.region = self.cluster.start(
-            "sentity", lambda ctx, key, state: SEntity(ctx, key, state,
-                                                       tally))
+            type_name, lambda ctx, key, state: entity(ctx, key, state,
+                                                      tally))
 
     def wakes(self):
         return self.system.engine.bookkeeper.wakes
@@ -2658,6 +2720,629 @@ def phase_sharding(errs, device="cuda", n_keys=SHARD_KEYS):
     return total
 
 
+# --------------------------------------------------------------------- #
+# 13. the ingress gateway
+# --------------------------------------------------------------------- #
+
+
+class GEntity(SEntity):
+    """Phase 13's entity: phase 12's, driven through the gateway.  A
+    ``("gw-cmd", ref, seq, cmd)`` with op "work" or "drop" runs that
+    command, "probe" only reads; each is acked with the count after it
+    (``ref.tell(("ack", seq, count))``)."""
+
+    def receive(self, msg):
+        if msg[0] != "gw-cmd":
+            return super().receive(msg)
+        _kind, ref, seq, cmd = msg
+        op = cmd.get("op") if isinstance(cmd, dict) else None
+        if op in ("work", "drop"):
+            super().receive((op,))
+        ref.tell(("ack", seq, self.count))
+        return self
+
+
+class GatewayNode:
+    """The gateway node of phase 13: a proxy-only cluster member (it owns
+    no shard) with an IngressGateway listening for clients."""
+
+    def __init__(self, name, config, plan):
+        self.fabric = NodeFabric(fault_plan=plan)
+        self.system = ActorSystem(None, name=name, config=config,
+                                  fabric=self.fabric)
+        self.port = self.fabric.listen()
+        self.address = self.system.address
+        self.cluster = ClusterSharding.attach(self.system, proxy_only=True)
+        self.gateway = IngressGateway(self.system)
+        self.client_port = self.gateway.listen()
+
+
+class GwClient:
+    """One raw-TCP client connection (the framing of
+    tools/ingress_bench.py's BenchClient, through the port's protocol)
+    with a reader thread tallying ACKs and their latency, and the
+    seq-addressed ERROR frames."""
+
+    def __init__(self, port, tenant):
+        self.sock = socket.create_connection(("127.0.0.1", port))
+        self.sock.setsockopt(socket.IPPROTO_TCP, socket.TCP_NODELAY, 1)
+        self.lock = threading.Lock()
+        self.sent_at = {}
+        self.acked = {}  # seq -> (result, latency_s)
+        self.errors = {}  # seq -> (code, retry_after_ms)
+        self.anon_errors = []
+        self.closed = False
+        self.seq = 0
+        self.auth_ok = threading.Event()
+        self.reader = threading.Thread(target=self._read_loop, daemon=True)
+        self.reader.start()
+        self.sock.sendall(gw_protocol.encode_frame(
+            gw_protocol.OP_CONNECT, {"tenant": tenant, "proto": 1}))
+        check(self.auth_ok.wait(20.0),
+              f"gateway: no AUTH_OK for a client of tenant {tenant}")
+
+    def _read_loop(self):
+        buf = bytearray()
+        while True:
+            try:
+                data = self.sock.recv(65536)
+            except OSError:
+                data = b""
+            if not data:
+                self.closed = True
+                return
+            buf += data
+            while len(buf) >= 4:
+                (n,) = struct.unpack_from(">I", buf, 0)
+                if len(buf) < 4 + n:
+                    break
+                op, value = gw_protocol.decode_frame_body(bytes(buf[4:4 + n]))
+                del buf[:4 + n]
+                now = time.perf_counter()
+                if op == gw_protocol.OP_AUTH_OK:
+                    self.auth_ok.set()
+                elif op == gw_protocol.OP_ACK and isinstance(value, dict):
+                    seq = value.get("seq")
+                    with self.lock:
+                        t0 = self.sent_at.get(seq)
+                        self.acked[seq] = (value.get("result"), (
+                            now - t0) if t0 is not None else 0.0)
+                elif op == gw_protocol.OP_ERROR and isinstance(value, dict):
+                    with self.lock:
+                        if "seq" in value:
+                            self.errors[value["seq"]] = (
+                                value.get("code"), value.get("retry_after_ms"))
+                        else:
+                            self.anon_errors.append(value.get("code"))
+
+    def send_cmd(self, seq, key, cmd):
+        frame = gw_protocol.encode_frame(gw_protocol.OP_SEND, {
+            "seq": seq, "type": "gentity", "key": key, "cmd": cmd})
+        with self.lock:
+            self.sent_at[seq] = time.perf_counter()
+        self.sock.sendall(frame)
+
+    def next_seq(self):
+        with self.lock:
+            self.seq += 1
+            return self.seq
+
+    def unresolved(self):
+        with self.lock:
+            return [s for s in self.sent_at
+                    if s not in self.acked and s not in self.errors]
+
+    def close(self):
+        for fn in (lambda: self.sock.shutdown(socket.SHUT_RDWR),
+                   self.sock.close):
+            try:
+                fn()
+            except OSError:
+                pass
+
+
+def gw_resolved(clients):
+    return all(not c.unresolved() for c in clients)
+
+
+def front_door(label, clients, items, rate):
+    """Send each (key, cmd) of ``items`` through the gateway, spread over
+    ``clients`` and paced at ``rate`` msgs/s per client; re-send what was
+    shed (a clean, seq-addressed ERROR) after its retry-after, for up to
+    GATEWAY_RETRY_ROUNDS rounds.  Returns (the acked result of each item
+    by index, the sheds)."""
+    pending = list(range(len(items)))
+    results, sheds = {}, 0
+    for _ in range(GATEWAY_RETRY_ROUNDS):
+        if not pending:
+            break
+        seqs = [{} for _ in clients]
+
+        def pump(ci):
+            client, burst = clients[ci], 16
+            mine = pending[ci::len(clients)]
+            for j in range(0, len(mine), burst):
+                t0 = time.perf_counter()
+                for idx in mine[j:j + burst]:
+                    seq = client.next_seq()
+                    seqs[ci][seq] = idx
+                    client.send_cmd(seq, *items[idx])
+                pause = burst / rate - (time.perf_counter() - t0)
+                if pause > 0:
+                    time.sleep(pause)
+
+        threads = [threading.Thread(target=pump, args=(ci,), daemon=True)
+                   for ci in range(len(clients))]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join()
+        wait_for(f"{label}: every command through the front door resolved",
+                 lambda: gw_resolved(clients), GATEWAY_TIMEOUT_S)
+        pending, retry_ms = [], 0
+        for client, sent in zip(clients, seqs):
+            with client.lock:
+                for seq, idx in sent.items():
+                    if seq in client.acked:
+                        results[idx] = client.acked[seq][0]
+                    else:
+                        pending.append(idx)
+                        retry_ms = max(retry_ms, client.errors[seq][1] or 0)
+        sheds += len(pending)
+        if pending:
+            time.sleep(retry_ms / 1e3)
+    check(not pending, f"{label}: {len(pending)} commands still shed after "
+          f"{GATEWAY_RETRY_ROUNDS} rounds")
+    return results, sheds
+
+
+def percentile(samples, p):
+    return float(np.percentile(samples, p)) if samples else 0.0
+
+
+def gw_metrics(gw):
+    """The gateway node's Prometheus samples of uigc_gateway_connections
+    and uigc_gateway_shed_total (summed over reasons; None without
+    telemetry metrics on the node, whose event bridge counts it).
+    Without them the gauge is read through a registry of the system's
+    gauges alone (install_system_gauges), which needs no events."""
+    tel = gw.system.telemetry
+    if tel is not None:
+        registry = tel.registry
+    else:
+        registry = MetricsRegistry()
+        install_system_gauges(registry, gw.system)
+    out = {"connections": None,
+           "shed_total": 0.0 if tel is not None else None}
+    for line in prometheus_text(registry).splitlines():
+        name = re.match(r"(\w+)(\{[^}]*\})? ", line)
+        if name and name.group(1) == "uigc_gateway_connections":
+            out["connections"] = float(line.split()[-1])
+        elif name and name.group(1) == "uigc_gateway_shed_total":
+            out["shed_total"] += float(line.split()[-1])
+    return out
+
+
+def gw_connection_scale(label, gw):
+    """600 concurrent connections, each CONNECT -> AUTH_OK, all held at
+    once; the gateway's count and its gauge must read them all."""
+    frame = gw_protocol.encode_frame(gw_protocol.OP_CONNECT,
+                                     {"tenant": "scale", "proto": 1})
+    socks = []
+    t0 = time.perf_counter()
+    try:
+        for _ in range(GATEWAY_CONNECTIONS):
+            sock = socket.create_connection(("127.0.0.1", gw.client_port))
+            sock.settimeout(20.0)
+            sock.sendall(frame)
+            head = b""
+            while len(head) < 4:
+                chunk = sock.recv(4 - len(head))
+                check(chunk, f"{label}: the gateway closed a CONNECT")
+                head += chunk
+            (n,) = struct.unpack(">I", head)
+            body = b""
+            while len(body) < n:
+                chunk = sock.recv(n - len(body))
+                check(chunk, f"{label}: the gateway closed a CONNECT")
+                body += chunk
+            op, _value = gw_protocol.decode_frame_body(body)
+            check(op == gw_protocol.OP_AUTH_OK,
+                  f"{label}: CONNECT answered by op {op}")
+            socks.append(sock)
+        seconds = time.perf_counter() - t0
+        held = gw.gateway.connection_count()
+        gauge = gw_metrics(gw)["connections"]
+    finally:
+        for sock in socks:
+            sock.close()
+    check(held == GATEWAY_CONNECTIONS and gauge == GATEWAY_CONNECTIONS,
+          f"{label}: {held} connections held, gauge {gauge}, of "
+          f"{GATEWAY_CONNECTIONS}")
+    wait_for(f"{label}: the scale connections closed",
+             lambda: gw.gateway.connection_count() == 0, GATEWAY_TIMEOUT_S)
+    return {"connections": held, "connect_s": seconds,
+            "connect_per_s": len(socks) / seconds, "gauge": gauge}
+
+
+def gw_storm(label, gw, keys):
+    """tools/ingress_bench.py's overload phase: GATEWAY_STORM_CLIENTS
+    clients of one tenant drive 10x its quota for GATEWAY_STORM_S over
+    the keyspace.  Every send must resolve to an ACK or a clean ERROR."""
+    clients = [GwClient(gw.client_port, "bench")
+               for _ in range(GATEWAY_STORM_CLIENTS)]
+    per_client = GATEWAY_CAPACITY * 10 // len(clients)
+    stop = threading.Event()
+
+    def storm(ci, client):
+        burst, i = 32, ci
+        while not stop.is_set():
+            t0 = time.perf_counter()
+            for _ in range(burst):
+                client.send_cmd(client.next_seq(), keys[i % len(keys)],
+                                {"op": "work"})
+                i += len(clients)
+            pause = burst / per_client - (time.perf_counter() - t0)
+            if pause > 0:
+                time.sleep(pause)
+
+    threads = [threading.Thread(target=storm, args=(ci, c), daemon=True)
+               for ci, c in enumerate(clients)]
+    t0 = time.perf_counter()
+    for t in threads:
+        t.start()
+    time.sleep(GATEWAY_STORM_S)
+    stop.set()
+    for t in threads:
+        t.join()
+    storm_s = time.perf_counter() - t0
+    wait_for(f"{label}: every storm send resolved",
+             lambda: gw_resolved(clients) or any(c.closed for c in clients),
+             GATEWAY_TIMEOUT_S)
+    check(gw_resolved(clients), f"{label}: storm sends unresolved "
+          f"{[len(c.unresolved()) for c in clients]}, clients closed "
+          f"{[c.closed for c in clients]}, gateway {dict(gw.gateway.stats)}")
+    sent = sum(len(c.sent_at) for c in clients)
+    acked = sum(len(c.acked) for c in clients)
+    errors = sum(len(c.errors) for c in clients)
+    shed = sent - acked
+    latencies = [lat for c in clients for _r, lat in c.acked.values()]
+    high = {}
+    for ci, c in enumerate(clients):
+        for seq, (result, _lat) in c.acked.items():
+            key = keys[(ci + (seq - 1) * len(clients)) % len(keys)]
+            high[key] = max(high.get(key, 0), result)
+    anon = sum(len(c.anon_errors) for c in clients)
+    for c in clients:
+        c.close()
+    check(errors == shed and anon == 0,
+          f"{label}: {shed} sends shed, {errors} clean ERRORs, {anon} "
+          f"without a seq")
+    return high, {"storm_s": storm_s, "sent": sent, "acked": acked,
+                  "shed": shed, "clean_shed_fraction": (
+                      errors / shed if shed else 1.0),
+                  "admitted_per_s": acked / storm_s,
+                  "admitted_p50_ms": percentile(latencies, 50) * 1e3,
+                  "admitted_p99_ms": percentile(latencies, 99) * 1e3}
+
+
+def gw_pump_and_die(label, gw, keys, victim, plan, survivors, worked):
+    """tests/test_gateway.py's chaos run at the phase's scale: a FLOOD
+    fault burns on the first accept, GATEWAY_PUMP_CLIENTS clients pump
+    over the keyspace, ``victim`` dies silently after
+    GATEWAY_DIE_AFTER_S once ``worked()`` (its collector launched the
+    kernel, or traced off the card), the pumps go on until the survivors
+    and the gateway see it gone and a while after; then every send
+    resolves, after bounded retries of the same seq.  Returns the highest
+    acked count per key, the keys sent to, and the run's numbers."""
+    burn = socket.create_connection(("127.0.0.1", gw.client_port), timeout=5)
+    burn.settimeout(10.0)
+    try:
+        answer = burn.recv(64)
+    except ConnectionError:  # a reset is a slammed socket too
+        answer = b""
+    burn.close()
+    check(answer == b"", f"{label}: the flooded accept answered {answer!r}")
+    wait_for(f"{label}: the FLOOD fault did not burn on the first accept",
+             lambda: gw.gateway.stats["shed:flood"] == 1, GATEWAY_TIMEOUT_S)
+    clients = [GwClient(gw.client_port, f"t{i}")
+               for i in range(GATEWAY_PUMP_CLIENTS)]
+    stop = threading.Event()
+    key_of = [{} for _ in clients]
+
+    def pump(ci, client):
+        i = ci * len(keys) // len(clients)
+        while not stop.is_set():
+            seq, key = client.next_seq(), keys[i % len(keys)]
+            key_of[ci][seq] = key
+            try:
+                client.send_cmd(seq, key, {"op": "work"})
+            except OSError:
+                return
+            i += 1
+            time.sleep(0.01)
+
+    threads = [threading.Thread(target=pump, args=(ci, c), daemon=True)
+               for ci, c in enumerate(clients)]
+    for t in threads:
+        t.start()
+    time.sleep(GATEWAY_DIE_AFTER_S)
+    # The victim's journaling dispatchers leave its collector a few wakes
+    # in that time; it dies once it has traced (launched, on the card).
+    wait_for(f"{label}: the victim's collector never traced",
+             worked, GATEWAY_TIMEOUT_S)
+    homed = sum(gw.cluster.home_of(k) == victim.address for k in keys)
+    t_death = time.perf_counter()
+    plan.isolate(victim.address)
+    victim.system.engine.on_crash()
+    wait_for(f"{label}: the survivors and the gateway without the victim",
+             lambda: shard_converged(survivors) and sorted(
+                 gw.cluster.members()) == sorted(
+                     n.address for n in survivors), GATEWAY_TIMEOUT_S)
+    rebalance_s = time.perf_counter() - t_death
+    time.sleep(GATEWAY_DIE_AFTER_S)
+    stop.set()
+    for t in threads:
+        t.join()
+    retried = 0
+    for _ in range(4):
+        deadline = time.monotonic() + 20.0
+        while not gw_resolved(clients) and time.monotonic() < deadline:
+            time.sleep(0.05)
+        if gw_resolved(clients):
+            break
+        for ci, c in enumerate(clients):
+            for seq in c.unresolved():
+                retried += 1
+                c.send_cmd(seq, key_of[ci][seq], {"op": "work"})
+    unresolved = sum(len(c.unresolved()) for c in clients)
+    check(unresolved == 0, f"{label}: {unresolved} sends never resolved")
+    sent = sum(len(c.sent_at) for c in clients)
+    acked = sum(len(c.acked) for c in clients)
+    errors = sum(len(c.errors) for c in clients)
+    check(acked > 0 and acked + errors == sent,
+          f"{label}: {acked} acked + {errors} errors of {sent} sends")
+    high = {}
+    for ci, c in enumerate(clients):
+        for seq, (result, _lat) in c.acked.items():
+            key = key_of[ci][seq]
+            high[key] = max(high.get(key, 0), result)
+    for c in clients:
+        c.close()
+    latencies = [lat for c in clients for _r, lat in c.acked.values()]
+    return high, sorted({k for m in key_of for k in m.values()}), {
+        "sent": sent, "acked": acked, "errors": errors, "retried": retried,
+        "homed_on_victim": homed, "rebalance_s": rebalance_s,
+        "admitted_p50_ms": percentile(latencies, 50) * 1e3,
+        "admitted_p99_ms": percentile(latencies, 99) * 1e3}
+
+
+def gateway_drive(label, n_data, fate, config, keys, nodes, tally, worked):
+    """The topology, the traffic and the checks of one phase-13 run on
+    ``nodes`` (filled as the nodes are built, so the caller can stop
+    them); ``worked(name)`` says whether a node's collector has worked.
+    Returns the run's numbers."""
+    plan = FaultPlan(13)
+    if fate == "die":
+        plan.client_fault(FLOOD, count=1)
+    data = []
+    for i in range(n_data):
+        node = ShardNode(f"gwd{'ABC'[i]}", config, plan, tally,
+                         type_name="gentity", entity=GEntity)
+        nodes.append(node)
+        data.append(node)
+    # Telemetry metrics turn on the process-global event recorder for all
+    # four nodes of this process.  Under the storm (a), whose every shed
+    # commits an event from a gateway reader, its lock convoys with the
+    # interpreter lock and the readers fall seconds behind (PERF.md), so
+    # only (b) counts uigc_gateway_shed_total through the event bridge.
+    gw = GatewayNode("gwG", dict(
+        config, **{"uigc.telemetry.metrics": fate == "die"}), plan)
+    nodes.append(gw)
+    for i, a in enumerate(data):
+        for b in data[i + 1:]:
+            a.fabric.connect("127.0.0.1", b.port)
+    for n in data:
+        gw.fabric.connect("127.0.0.1", n.port)
+    wait_for(f"{label}: the edge settled", lambda: shard_converged(data)
+             and sorted(gw.cluster.members()) == sorted(
+                 n.address for n in data)
+             and gw.cluster.home_of(keys[0]) is not None, GATEWAY_TIMEOUT_S)
+    out = {"gw": gw, "data": [n.system.name for n in data]}
+    if fate == "overload":
+        out.update(gw_connection_scale(label, gw))
+        fillers = [GwClient(gw.client_port, f"fill{i}")
+                   for i in range(GATEWAY_FILL_TENANTS)]
+        items = [(k, {"op": "work"}) for _ in range(GATEWAY_FILL)
+                 for k in keys]
+        t0 = time.perf_counter()
+        filled, out["fill_sheds"] = front_door(
+            f"{label}: fill", fillers, items, GATEWAY_CAPACITY * 0.9)
+        out["fill_s"] = time.perf_counter() - t0
+        high = {}
+        for idx, result in filled.items():
+            high[items[idx][0]] = max(high.get(items[idx][0], 0), result)
+        check(all(high.get(k) == GATEWAY_FILL for k in keys),
+              f"{label}: after the fill "
+              f"{sum(high.get(k) != GATEWAY_FILL for k in keys)} keys short "
+              f"of {GATEWAY_FILL}")
+        storm_high, storm = gw_storm(label, gw, keys)
+        out.update(storm)
+        for k, v in storm_high.items():
+            high[k] = max(high[k], v)
+        survivors, probed_keys = data, keys
+    else:
+        survivors = data[:2]
+        high, probed_keys, pumped = gw_pump_and_die(
+            label, gw, keys, data[2], plan, survivors,
+            lambda: worked(data[2].system.name))
+        out.update(pumped)
+        fillers = [GwClient(gw.client_port, f"probe{i}")
+                   for i in range(GATEWAY_FILL_TENANTS)]
+    # acked-then-lost: every probed key's count covers its highest ACK
+    probes, _ = front_door(f"{label}: probes", fillers,
+                           [(k, {"op": "probe"}) for k in probed_keys],
+                           GATEWAY_CAPACITY * 0.9)
+    finals = {probed_keys[i]: r for i, r in probes.items()}
+    lost = [k for k, h in high.items() if finals.get(k, -1) < h]
+    out["probed"] = len(finals)
+    out["acked_then_lost"] = len(lost)
+    check(not lost, f"{label}: {len(lost)} keys lost acked commands, e.g. "
+          f"{[(k, high[k], finals.get(k)) for k in lost[:3]]}")
+    names = [n.system.name for n in survivors]
+    active = sum(n.region.active_count() for n in survivors)
+
+    # The hold: SHARD_HOLD_WAKES wakes on every surviving data node, no
+    # held child of a live incarnation stops, every transient child on a
+    # survivor is collected.
+    held_stopped0 = tally.sums(names)[2]
+    w0 = {n.system.name: n.wakes() for n in survivors}
+
+    def held_enough():
+        spawned, stopped, _, _ = tally.sums(names)
+        return stopped == spawned and all(
+            n.wakes() - w0[n.system.name] >= SHARD_HOLD_WAKES
+            for n in survivors)
+
+    wait_for(f"{label}: transient children collected", held_enough,
+             GATEWAY_TIMEOUT_S)
+    spawned, stopped, held_stopped, held_alive = tally.sums(names)
+    check(held_stopped == held_stopped0,
+          f"{label}: {held_stopped - held_stopped0} held children of live "
+          f"incarnations stopped in the hold")
+    check(held_alive == active, f"{label}: {held_alive} held children alive "
+          f"for {active} incarnations")
+    check(tally.restored_refs == 0,
+          f"{label}: {tally.restored_refs} incarnations restored a ref to "
+          f"a stopped child")
+    out["transient"] = (spawned, stopped)
+    t0 = time.perf_counter()
+    front_door(f"{label}: drops", fillers,
+               [(k, {"op": "drop"}) for k in probed_keys],
+               GATEWAY_CAPACITY * 0.9)
+    wait_for(f"{label}: held children collected after drop",
+             lambda: tally.sums(names)[3] == 0, GATEWAY_TIMEOUT_S)
+    out["collect_s"] = time.perf_counter() - t0
+    for c in fillers:
+        c.close()
+    out["recovered"] = sum(n.cluster.journal.recovered_entities
+                           for n in survivors) if fate == "die" else 0
+    if fate == "die":
+        check(out["recovered"] > 0,
+              f"{label}: no entity of the victim recovered from the journal")
+    out["stats"] = dict(gw.gateway.stats)
+    out["metrics"] = gw_metrics(gw)
+    shed = sum(v for k, v in out["stats"].items() if k.startswith("shed:"))
+    check(out["metrics"]["shed_total"] in (None, shed),
+          f"{label}: uigc_gateway_shed_total {out['metrics']['shed_total']} "
+          f"against the gateway's {shed} sheds")
+    out["names"] = names
+    out["wakes"] = {n.system.name: n.wakes() for n in data}
+    return out
+
+
+def gateway_run(label, backend, pipelined, n_data, fate, device, n_keys, errs):
+    """One run of phase 13 (the module note).  Returns the launches per
+    form of its collectors."""
+    tally = ShardTally()
+    journal_dir = tempfile.mkdtemp(prefix="uigc-gateway-")
+    config = {
+        "uigc.crgc.shadow-graph": backend,
+        "uigc.crgc.device": device,
+        "uigc.crgc.trace-mode": "auto",
+        "uigc.crgc.pipelined": pipelined,
+        "uigc.crgc.wakeup-interval": 50,
+        "uigc.crgc.egress-finalize-interval": 10,
+        "uigc.crgc.num-nodes": n_data + 1,
+        "uigc.cluster.tick-interval": 40,
+        "uigc.cluster.handoff-retry": 150,
+        "uigc.runtime.throughput": 256,
+        "uigc.node.max-batch-frames": 1024,
+        "uigc.node.writer-queue-limit": 32768,
+        "uigc.gateway.tenant-msgs-per-sec": (
+            GATEWAY_CAPACITY if fate == "overload" else 0),
+        "uigc.gateway.tenant-max-connections": 4096,
+        "uigc.gateway.egress-queue-limit": 1024,
+        "uigc.gateway.reader-threads": 2,
+    }
+    config.update(SHARD_HEARTBEAT)
+    if fate == "die":
+        config["uigc.cluster.journal-dir"] = journal_dir
+    keys = [f"key-{i}" for i in range(n_keys)]
+    nodes = []
+    prop.reset_launches()
+    try:
+        with LaunchCapture() as cap, NodeLaunches() as nl, \
+                OracleCheck(node_of=nl.current) as oc, HarvestCheck(oc):
+            try:
+                # a node has worked once its collector launched the
+                # kernel (on the card) or had a trace checked (CPU)
+                r = gateway_drive(
+                    label, n_data, fate, config, keys, nodes, tally,
+                    lambda name: (nl.by_node if device == "cuda"
+                                  else oc.by_node)[name] > 0)
+            finally:
+                # inside the counters: the last wakes' launches count
+                for n in nodes:
+                    if isinstance(n, GatewayNode):
+                        n.gateway.close()
+                for n in nodes:
+                    try:
+                        n.system.terminate(timeout_s=5.0)
+                    except Exception:
+                        pass
+    except (AssertionError, RuntimeError, OSError) as exc:
+        raise SmokeFailure(f"gateway {label}: {exc} (oracle: "
+                           f"{oc.mismatches} of {oc.traces} traces differ; "
+                           f"first {oc.first})") from exc
+    finally:
+        shutil.rmtree(journal_dir, ignore_errors=True)
+    launches = dict(prop.launches)
+    by_node = dict(nl.by_node)
+    traced = dict(oc.by_node)
+    check(oc.mismatches == 0,
+          f"gateway {label}: {oc.mismatches} of {oc.traces} traces differ "
+          f"from trace_marks_np; first {oc.first}")
+    for name in r["data"]:
+        check(traced.get(name, 0) > 0,
+              f"gateway {label}: no trace of {name} was checked: {traced}")
+    if device == "cuda":
+        check(None not in by_node and sum(by_node.values()) == sum(
+            launches.values()), f"gateway {label}: launches outside a "
+              f"collector: {by_node} against {launches}")
+        for name in r["data"]:
+            check(by_node.get(name, 0) > 0,
+                  f"gateway {label}: {name}'s collector never launched: "
+                  f"{by_node}")
+    numbers = " ".join(
+        f"{k}={v:.3f}" if isinstance(v, float) else f"{k}={v}"
+        for k, v in r.items() if k not in ("gw", "names", "data", "stats",
+                                           "metrics", "wakes"))
+    say(f"[gateway] {label} keys={n_keys} data_nodes={n_data} {numbers} "
+        f"stats={r['stats']} metrics={r['metrics']} wakes={r['wakes']} "
+        f"launches={launches} launches_by_node={by_node} "
+        f"oracle_traces_by_node={traced}")
+    if device == "cuda":
+        live_kernel_checks(cap.kept, errs, f"gateway {label}")
+    return launches
+
+
+def phase_gateway(errs, device="cuda", n_keys=GATEWAY_KEYS):
+    """Phase 13.  Returns the launches per form over its runs."""
+    soft, hard = resource.getrlimit(resource.RLIMIT_NOFILE)
+    want = 4 * GATEWAY_CONNECTIONS + 1024
+    if soft != resource.RLIM_INFINITY and soft < want:
+        resource.setrlimit(resource.RLIMIT_NOFILE, (
+            want if hard == resource.RLIM_INFINITY else min(want, hard), hard))
+    total = {"propagate": 0, "propagate_gated": 0}
+    for label, backend, pipelined, n_data, fate in GATEWAY_RUNS:
+        for form, count in gateway_run(label, backend, pipelined, n_data,
+                                       fate, device, n_keys, errs).items():
+            total[form] += count
+    say(f"[gateway] launches={total}")
+    return total
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; nothing was run",
@@ -2757,6 +3442,10 @@ def main():
     sharding_launches = phase_sharding(errs)
     elapsed("phase 12")
 
+    torch.cuda.empty_cache()
+    gateway_launches = phase_gateway(errs)
+    elapsed("phase 13")
+
     for form, row in kernels.items():
         row["launches"] = live_launches[form]
         row["launches_by_phase"] = {"trace_10M": main_launches[form],
@@ -2767,7 +3456,8 @@ def main():
                                     "telemetry": telemetry_launches[form],
                                     "multi_node": cluster_launches[form],
                                     "multi_process": procs_launches[form],
-                                    "sharding": sharding_launches[form]}
+                                    "sharding": sharding_launches[form],
+                                    "gateway": gateway_launches[form]}
         row["max_abs_err"] = errs[form]
     order = ("name", "route", "source", "replaces", "launches",
              "launches_by_phase", "max_abs_err", "ms", "plain_ms", "bound_ms",

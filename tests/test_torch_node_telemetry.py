@@ -420,13 +420,42 @@ def _no_nonzero_recv(system):
     return graph.investigate_live_set()["nonzero_recv"] == 0
 
 
-@pytest.mark.parametrize("kind", ["node"])
-def test_sanitizer_clean_two_nodes(kind):
+def _joined(fa, sa, fb, sb):
+    """Both sides list each other as members.  ``connect`` returns once
+    the dialed node's hello arrives, which that node sends before it
+    installs the dialer: a send from B in that window is dropped (the
+    peer is unknown), and its counted send leaves the target's receive
+    balance at -1 for good."""
+    return sb.address in fa.members() and sa.address in fb.members()
+
+
+def _oracle_balanced(system):
+    san = system.sanitizer
+    with san._lock:
+        return all(s.recv_count == 0 for s in san.oracle.from_set
+                   if not s.is_halted)
+
+
+def _sanitized_pair_workload(tag):
+    """Holder on A, owner on B sharing its worker to A's holder, 15
+    pings through the shared ref, then both drop: returns the two
+    sanitized systems once the system is quiescent (the caller
+    terminates them).
+
+    Quiescent means the worker was collected and every receive count is
+    zero, in both collectors' graphs and in both sanitizer oracles.  A
+    zero read alone is not enough: while the holder's last sends are
+    still in its unflushed entry, the worker's receipts folded so far
+    can match the sends folded so far, and the next flush takes the
+    balance to -1 again until the worker's next delta.  The worker's
+    collection on B needs its balance at zero with every fact folded,
+    and no fact follows it."""
     sanitized = {"uigc.analysis.sanitizer": True}
-    fa, sa, _ = _spawn_node("pancl0", 2, sanitized)
-    fb, sb, pb = _spawn_node("pancl1", 2, sanitized)
+    fa, sa, _ = _spawn_node(f"{tag}0", 2, sanitized)
+    fb, sb, pb = _spawn_node(f"{tag}1", 2, sanitized)
     try:
         fa.connect("127.0.0.1", pb)
+        assert _settle(lambda: _joined(fa, sa, fb, sb)), "the pair never joined"
         holder = sa.spawn_root(Behaviors.setup_root(_Holder), "holder")
         peer = fb._proxy(sa.address, holder.cell.uid)
         owner = sb.spawn_root(Behaviors.setup_root(
@@ -438,8 +467,21 @@ def test_sanitizer_clean_two_nodes(kind):
             time.sleep(0.005)
         holder.tell(_Drop())
         owner.tell(_Drop())
-        assert _settle(lambda: _no_nonzero_recv(sa) and _no_nonzero_recv(sb)), (
+        worker = owner.cell.children["worker"]
+        assert _settle(lambda: worker.is_terminated
+                       and all(_no_nonzero_recv(s) and _oracle_balanced(s)
+                               for s in (sa, sb))), (
             "balances never converged: the workload itself is broken")
+    except BaseException:
+        _terminate_all(sa, sb)
+        raise
+    return sa, sb
+
+
+@pytest.mark.parametrize("kind", ["node"])
+def test_sanitizer_clean_two_nodes(kind):
+    sa, sb = _sanitized_pair_workload("pancl")
+    try:
         for system in (sa, sb):
             san = system.sanitizer
             assert san.checks > 0
@@ -447,3 +489,39 @@ def test_sanitizer_clean_two_nodes(kind):
             assert san.check_quiescent() == [], san.report()
     finally:
         _terminate_all(sa, sb)
+
+
+def test_sanitizer_clean_two_nodes_under_concurrent_load():
+    """Six copies of the two-node workload at once in one interpreter:
+    the load under which a send from the dialed node raced its install
+    of the dialer (ROADMAP Queue 3 item 13).  Every copy must end clean
+    with every receive balance at zero in the oracle."""
+    import threading
+
+    copies = 6
+    results = [None] * copies
+
+    def run(i):
+        try:
+            sa, sb = _sanitized_pair_workload(f"panld{i}_")
+        except BaseException as exc:
+            results[i] = repr(exc)
+            return
+        try:
+            found = []
+            for system in (sa, sb):
+                san = system.sanitizer
+                if san.checks == 0:
+                    found.append(f"{system.address}: no checks")
+                found += [v.rule for v in san.violations]
+                found += [v.rule for v in san.check_quiescent()]
+            results[i] = found
+        finally:
+            _terminate_all(sa, sb)
+
+    threads = [threading.Thread(target=run, args=(i,)) for i in range(copies)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    assert results == [[]] * copies, results

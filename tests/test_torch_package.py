@@ -59,7 +59,10 @@ MODULES = ("utils/validation.py", "utils/events.py", "utils/platform.py",
            "runtime/shm_ring.py", "runtime/node.py", "models/nodeproc.py",
            "cluster/__init__.py", "cluster/sharding.py",
            "cluster/migration.py", "cluster/passivation.py",
-           "cluster/journal.py", "cluster/membership.py")
+           "cluster/journal.py", "cluster/membership.py",
+           "gateway/__init__.py", "gateway/protocol.py",
+           "gateway/admission.py", "gateway/session.py",
+           "gateway/gateway.py")
 
 
 def imported_roots(path):
@@ -117,6 +120,8 @@ def test_port_imports_with_jax_blocked():
         "import uigc_tpu_torch.models.nodeproc\n"
         "import uigc_tpu_torch.cluster\n"
         "from uigc_tpu_torch import ClusterSharding, Entity, EntityRef\n"
+        "import uigc_tpu_torch.gateway\n"
+        "from uigc_tpu_torch.gateway import ClientRef, IngressGateway\n"
         "from uigc_tpu_torch.models import run_cluster_recovery\n"
         "from uigc_tpu_torch import ActorSystem, ActorTestKit\n"
         "assert 'jax' not in [m.split('.')[0] for m in sys.modules\n"
@@ -150,36 +155,37 @@ def unported_raises():
 
 
 def test_only_later_items_still_raise():
-    """The multi-node fabric, the wire codecs, the distributed collector,
-    the TCP node transport and cluster sharding are ported: what still
-    raises is the gateway's token in the wire codec (ROADMAP.md Queue 1
-    item 9).  The wire codec's ProxyCell and EntityRef resolvers are the
-    port's classes, and no message names item 7b or 8."""
+    """Every path that waited for a module is ported: no port file
+    raises a NotImplementedError naming a ROADMAP item, the wire codec's
+    ProxyCell, EntityRef and ClientRef resolvers are the port's classes,
+    and no file names Queue 1 item 7b, 8 or 9."""
     raises = unported_raises()
-    items = sorted(re.search(r"Queue 1 item (\w+)", msg).group(1)
-                   for _, msg in raises)
-    assert items == ["9"], raises
-    assert {f for f, _ in raises} == {"uigc_tpu_torch/runtime/wire.py"}
+    assert raises == [], raises
     from uigc_tpu_torch.cluster import sharding
+    from uigc_tpu_torch.gateway import session
     from uigc_tpu_torch.runtime import node, wire
 
     assert wire._proxy_cell_class() is node.ProxyCell
     assert wire._entity_ref_class() is sharding.EntityRef
+    assert wire._client_ref_class() is session.ClientRef
     assert not any("7b" in path.read_text() for path in PORT_FILES)
-    assert not any(re.search(r"Queue 1 item 8\b", path.read_text())
+    assert not any(re.search(r"Queue 1 item [89]\b", path.read_text())
                    for path in PORT_FILES)
 
 
 def test_package_import_leaves_the_cluster_and_the_wire_unloaded():
     """``import uigc_tpu_torch`` binds ClusterSharding, Entity and
     EntityRef at first use: the package import loads neither the
-    cluster nor the wire codec, and the names are the cluster's."""
+    cluster nor the wire codec nor the gateway, and the names are the
+    cluster's."""
     code = (
         "import sys\n"
         "import uigc_tpu_torch as u\n"
         "assert 'uigc_tpu_torch.cluster' not in sys.modules\n"
         "assert 'uigc_tpu_torch.runtime.wire' not in sys.modules\n"
+        "assert 'uigc_tpu_torch.gateway' not in sys.modules\n"
         "from uigc_tpu_torch.cluster import sharding\n"
+        "assert 'uigc_tpu_torch.gateway' not in sys.modules\n"
         "assert u.ClusterSharding is sharding.ClusterSharding\n"
         "assert u.Entity is sharding.Entity\n"
         "assert u.EntityRef is sharding.EntityRef\n"

@@ -2,10 +2,10 @@
 
 - The lazy ref-type resolvers return the port's classes
   (``_proxy_cell_class``: ``runtime/node.py`` ``ProxyCell``;
-  ``_entity_ref_class``: ``cluster/sharding.py`` ``EntityRef``), and an
+  ``_entity_ref_class``: ``cluster/sharding.py`` ``EntityRef``;
+  ``_client_ref_class``: ``gateway/session.py`` ``ClientRef``), and an
   ``entity`` token decodes through the receiving system's cluster, as in
-  the reference.  Decoding a ``gwclient`` token (``gateway/session.py``,
-  ROADMAP.md Queue 1 item 9) raises ``NotImplementedError``.
+  the reference.
 - The in-process fabric's ``Tombstone`` crosses as the ``cell`` token it
   stands for.
 - One more distributed-collector frame, ``dcut`` (``encode_dcut``): the
@@ -99,12 +99,16 @@ def _entity_ref_class():
     return _ENTITY_REF
 
 
+_CLIENT_REF = None
+
+
 def _client_ref_class():
-    """Raises until the gateway is ported (ROADMAP.md Queue 1 item 9)."""
-    raise NotImplementedError(
-        "a gateway client token needs gateway/session.py, which the port "
-        "does not have yet: ROADMAP.md Queue 1 item 9"
-    )
+    global _CLIENT_REF
+    if _CLIENT_REF is None:
+        from ..gateway.session import ClientRef
+
+        _CLIENT_REF = ClientRef
+    return _CLIENT_REF
 
 
 _TOMBSTONE = None
