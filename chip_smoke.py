@@ -200,6 +200,32 @@ Phases, each reported on its own lines:
    telemetry metrics on the gateway node, also uigc_gateway_shed_total,
    which must equal the gateway's sheds.
 
+14. The static checker and the operator tools (``[tools]`` lines),
+   everything through the tools' own entry points.  (a) In subprocesses
+   (this machine has no JAX), started after (b) and run beside (c),
+   ``python -m uigc_tpu_torch.tools.uigc_check --strict --json
+   uigc_tpu_torch/`` and ``uigc_lint --strict``: exit 0, all four passes
+   run (no SKIP), the findings per pass printed.  (b) ``uigc_tpu_torch/tools/sweep_profile.py``'s ``profile`` on phase 4's 10M
+   graph and layout (the host layout kept, moved to the card again), both
+   kernel forms: full-, half- and no-dirty sweeps beside phase 4's
+   full-walk time from this run, the word packs, and per trace mode the
+   sweeps, the fixpoint's wall, its kernel time (CUDA events around every
+   launch) and the glue around it; the marks of every mode must equal
+   phase 4's and the launch counters must move by exactly the calls the
+   profile reports (its probes and two runs of each mode's sweeps).  (c)
+   Phase 6's tree at 50,000 actors on ``device`` auto with the wake
+   profiler, metrics, device observatory, inspector, time series, a
+   JSONL sink and an HTTP port on; while it is held: ``device_report
+   --url`` (every device-active wake's launches, logged around each
+   collector trace, a positive multiple of its sweeps; the per-sweep
+   attribution within 10% of its device time), ``graph_inspect --url``
+   (snapshot, why-live of a leaf, why-live paths validated, the
+   snapshot's live set equal to trace_marks_np's on the shadow graph
+   over the snapshot's actors: the held graph only gains actors),
+   ``telemetry_dump --from-jsonl`` (with the event stream paused, every
+   replayed counter equal to a live ``/metrics.json`` scrape) and
+   ``uigc_top --url --once --plain`` (the device panel with no dash).
+
 Then one JSON line with the kernel table (the full-walk times; launches
 counted on phase 6, the live collector, with every phase's counts beside
 them) and, last, {"ok": true, "device": {...}}.  Any failed check exits
@@ -207,6 +233,7 @@ non-zero before that line; there is no CPU path.
 """
 
 import contextlib
+import io
 import json
 import os
 import re
@@ -221,6 +248,7 @@ import tempfile
 import threading
 import time
 import types
+import urllib.request
 from collections import Counter
 
 import numpy as np
@@ -250,9 +278,12 @@ from uigc_tpu_torch.runtime.node import NodeFabric
 from uigc_tpu_torch.runtime.remote import RemoteSpawner
 from uigc_tpu_torch.runtime.system import ActorSystem
 from uigc_tpu_torch.telemetry import inspect as tel_inspect
+from uigc_tpu_torch.tools import (device_report, graph_inspect, sweep_profile,
+                                  telemetry_dump, uigc_top)
 from uigc_tpu_torch.telemetry import (DeviceObservatory, EventMetricsBridge,
                                       MetricsRegistry, WakeProfiler,
-                                      install_system_gauges, prometheus_text)
+                                      install_system_gauges, prometheus_text,
+                                      validate_device_doc)
 from uigc_tpu_torch.utils import events
 from uigc_tpu_torch.utils.platform import require_hopper
 
@@ -379,6 +410,17 @@ GATEWAY_RUNS = (
 )
 GATEWAY_TIMEOUT_S = 120.0
 GATEWAY_RETRY_ROUNDS = 8
+#: phase 14: the checker's passes, the profile's repetitions per timing,
+#: the live node's tree (phase 6's, cut from 100,000 actors: with the
+#: JSONL sink, the time series and the HTTP port on it built in 26.8 and
+#: 30.6 s and collected in 33.2 and 38.3 s, and the phase took 81.8 s),
+#: how many sampled actors the why-live self-check validates beside the
+#: leaf, and the subprocess time limit of each static check
+TOOLS_PASSES = ("lint", "surface", "locks", "purity")
+TOOLS_PROFILE_REPS = 5
+TOOLS_TREE = dict(n_actors=50_000, fanout=8)
+TOOLS_WHY_LIVE_SAMPLE = 8
+TOOLS_CHECK_TIMEOUT_S = 300
 KERNEL_SOURCE = "uigc_tpu_torch/csrc/propagate.cu"
 REPLACES = "uigc_tpu/ops/pallas_trace.py:983"
 
@@ -3343,6 +3385,423 @@ def phase_gateway(errs, device="cuda", n_keys=GATEWAY_KEYS):
     return total
 
 
+# --------------------------------------------------------------------- #
+# 14. the static checker and the operator tools
+# --------------------------------------------------------------------- #
+
+
+def tools_checker_start(root):
+    """14a: the port's checker and linter, --strict over the package, in
+    subprocesses (this machine has no JAX: they need neither it nor the
+    reference), started together; 14c runs while they do.  Returns
+    {module: (process, start time)}."""
+    procs = {}
+    for module in ("uigc_check", "uigc_lint"):
+        args = [sys.executable, "-m", f"uigc_tpu_torch.tools.{module}",
+                "--strict", "uigc_tpu_torch/"]
+        if module == "uigc_check":
+            args.append("--json")
+        procs[module] = (subprocess.Popen(
+            args, cwd=root, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+            text=True), time.perf_counter())
+    return procs
+
+
+def tools_checker_finish(procs):
+    """14a's verdicts: rc 0, no SKIP, every pass run, nothing fresh."""
+    for module, (proc, t0) in procs.items():
+        try:
+            stdout, stderr = proc.communicate(timeout=TOOLS_CHECK_TIMEOUT_S)
+        finally:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+        seconds = time.perf_counter() - t0
+        check(proc.returncode == 0,
+              f"tools: {module} --strict exited {proc.returncode}: "
+              f"{(stdout + stderr)[-2000:]}")
+        check("SKIP" not in stderr,
+              f"tools: {module} skipped a pass: {stderr[-1000:]}")
+        if module == "uigc_check":
+            doc = json.loads(stdout)
+            passes = doc["passes"]
+            check(sorted(passes) == sorted(TOOLS_PASSES) and all(
+                passes[p]["status"] == "ok" for p in TOOLS_PASSES),
+                f"tools: uigc_check passes {passes}")
+            check(doc["fresh"] == [], f"tools: fresh findings {doc['fresh']}")
+            say(f"[tools] uigc_check --strict uigc_tpu_torch/: rc=0 "
+                f"files={doc['files']} findings per pass "
+                + " ".join(f"{p}={passes[p]['findings']}"
+                           for p in TOOLS_PASSES)
+                + f" grandfathered={doc['grandfathered']} fresh=0 "
+                f"locks={passes['locks']['locks']} "
+                f"lock_edges={passes['locks']['edges']} "
+                f"purity_entries={passes['purity']['entries']} "
+                f"eager_device_functions={passes['purity']['eager']} "
+                f"(run beside 14c, done within {seconds:.1f} s)")
+        else:
+            tail = stderr.strip().splitlines()
+            say(f"[tools] uigc_lint --strict uigc_tpu_torch/: rc=0 "
+                f"{tail[-1] if tail else 'clean'} (done within "
+                f"{seconds:.1f} s)")
+
+
+def tools_profile(graph, prep, jump_parent, marks, kernels, device):
+    """14b: sweep_profile on phase 4's graph and layout, both gate forms:
+    the marks of every mode equal phase 4's, and the launch counters
+    move by exactly the kernel calls the profile reports.  Returns the
+    launches per form."""
+    dev = torch.device(device)
+    lay = ct.layout_to_device(prep, dev)
+    prop.reset_launches()
+    t0 = time.perf_counter()
+    doc = sweep_profile.profile(graph, lay, jump_parent, device=dev,
+                                reps=TOOLS_PROFILE_REPS)
+    seconds = time.perf_counter() - t0
+    launches = dict(prop.launches)
+    del lay
+    probes = 3 * (TOOLS_PROFILE_REPS + 1)
+    for form in sweep_profile.FORMS:
+        want = probes + 2 * sum(row["n_sweeps"]
+                                for mode, row in doc["modes"].items()
+                                if sweep_profile.MODE_FORM[mode] == form)
+        check(doc["launches"][form] == want,
+              f"tools: the profile reports {doc['launches'][form]} {form} "
+              f"calls, its probes and sweeps make {want}")
+        if dev.type == "cuda":
+            check(launches[form] == want,
+                  f"tools: {form} launched {launches[form]} times in the "
+                  f"profile, which reports {want} (probes {probes} and two "
+                  f"runs of its sweeps)")
+    for mode, got in doc["marks"].items():
+        check(np.array_equal(got, marks),
+              f"tools: sweep_profile's {mode} marks differ from phase 4's")
+    say(f"[tools] sweep_profile n={doc['n_actors']} blocks={doc['n_blocks']} "
+        f"walk_groups={doc['n_chunks']} reps={TOOLS_PROFILE_REPS} "
+        f"seconds={seconds:.2f} launches={launches} "
+        f"reported={doc['launches']}; marks of "
+        f"{sorted(doc['marks'])} equal to phase 4's")
+    for form in sweep_profile.FORMS:
+        p4 = kernels.get(form, {}).get("ms")
+        say(f"[tools] sweep_profile {form}: full_dirty_ms="
+            f"{doc['sweep_full_dirty_ms'][form]:.4f} (phase 4 in this run: "
+            f"{'%.4f' % p4 if p4 is not None else 'not run'}) "
+            f"half_dirty_ms={doc['sweep_half_dirty_ms'][form]:.4f} "
+            f"no_dirty_ms={doc['sweep_no_dirty_ms'][form]:.4f}")
+    say(f"[tools] sweep_profile packs: pack_bools_ms="
+        f"{doc['pack_bools_ms']:.4f} pack_hits_words_ms="
+        f"{doc['pack_hits_words_ms']:.4f}")
+    for mode, row in doc["modes"].items():
+        say(f"[tools] sweep_profile mode={mode} n_sweeps={row['n_sweeps']} "
+            f"host_syncs={row['host_syncs']} fixpoint_ms="
+            f"{row['fixpoint_ms']:.3f} kernel_ms={row['kernel_ms']:.3f} "
+            f"kernel_share={row['kernel_ms'] / row['fixpoint_ms']:.3f} "
+            f"glue_ms={row['glue_ms']:.3f} glue_per_sweep_ms="
+            f"{row['glue_per_sweep_ms']:.4f} dirty_groups={row['dirty_chunks']} "
+            f"changed_supers={row['changed_supers']} "
+            f"tiles_skipped={row['tiles_skipped']} pull_on={row['pull_on']}")
+    return launches
+
+
+class TraceLaunches:
+    """The kernel launches of each collector trace of a one-system run:
+    wraps ArrayShadowGraph.compute_marks (the ``device`` backend traces
+    through it once per traced wake) and logs the launch counters' delta
+    around each call."""
+
+    def __init__(self):
+        self.deltas = []
+        self._plain = arrays.ArrayShadowGraph.compute_marks
+
+    def __enter__(self):
+        plain = self._plain
+
+        def logged(graph):
+            before = sum(prop.launches.values())
+            out = plain(graph)
+            self.deltas.append(sum(prop.launches.values()) - before)
+            return out
+
+        arrays.ArrayShadowGraph.compute_marks = logged
+        return self
+
+    def __exit__(self, *exc):
+        arrays.ArrayShadowGraph.compute_marks = self._plain
+
+
+def tool_main(main, args):
+    """A tool's main(args) with its standard output captured: (rc, out)."""
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = main(args)
+    return rc, buf.getvalue()
+
+
+def snapshot_live_set(snap):
+    """The keys a snapshot's own reachability marks: BFS from its
+    pseudoroots over positive created edges and supervisor pointers,
+    halted actors absorbing (why_live's traversal, once for all)."""
+    actors = snap["actors"]
+    out_edges = {}
+    for src, dst, weight in snap.get("edges", []):
+        if weight > 0:
+            out_edges.setdefault(src, []).append(dst)
+    for child, parent in snap.get("supervisors", []):
+        out_edges.setdefault(child, []).append(parent)
+    seen = {k for k, rec in actors.items() if rec["pseudoroot"]}
+    frontier = list(seen)
+    while frontier:
+        cur = frontier.pop()
+        if actors[cur].get("halted"):
+            continue
+        for dst in out_edges.get(cur, ()):
+            if dst not in seen and dst in actors:
+                seen.add(dst)
+                frontier.append(dst)
+    return seen
+
+
+def tools_live_probe(log, jsonl_path):
+    def probe(system, stage):
+        if stage != "held":
+            return None
+        tel = system.telemetry
+        base = f"http://127.0.0.1:{tel.http.port}"
+        res = {"base": base}
+        # device_report --url: the doc and the rendered report
+        rc, out = tool_main(device_report.main, ["--url", base, "--json"])
+        res["device_rc"], res["device_doc"] = rc, json.loads(out)
+        res["trace_launches"] = list(log.deltas)
+        rc, res["device_report"] = tool_main(device_report.main,
+                                             ["--url", base])
+        res["device_report_rc"] = rc
+        # graph_inspect --url: snapshot, why-live of a leaf, self-check
+        rc, out = tool_main(graph_inspect.main,
+                            ["snapshot", "--url", base, "--json"])
+        snap = json.loads(out)
+        res["snapshot_rc"] = rc
+        res["snapshot_actors"] = len(snap["actors"])
+        leaf = max(snap["actors"].values(),
+                   key=lambda rec: (rec["name"].count("/"), rec["key"]))["key"]
+        rc, out = tool_main(graph_inspect.main,
+                            ["why-live", leaf, "--url", base, "--json"])
+        leaf_result = json.loads(out)
+        res["why_live_rc"] = rc
+        res["why_live_leaf"] = (leaf_result.get("verdict"),
+                                len(leaf_result.get("path", [])),
+                                leaf_result.get("parents"))
+        problems = [f"{leaf}: {p}" for p in
+                    tel_inspect.validate_why_live(snap, leaf_result)]
+        rng = np.random.default_rng(14)
+        keys = sorted(snap["actors"])
+        sample = [keys[i] for i in rng.choice(len(keys), TOOLS_WHY_LIVE_SAMPLE,
+                                               replace=False)]
+        for key in sample:
+            result = tel_inspect.why_live(snap, key)
+            problems += [f"{key}: {p}" for p in
+                         tel_inspect.validate_why_live(snap, result)]
+        res["selfcheck_problems"] = problems
+        res["selfcheck_checked"] = 1 + len(sample)
+        # The graph gains actors as their entries arrive while the tree
+        # is held (nothing leaves it), so the oracle, read after the
+        # snapshot, is judged over the actors the snapshot holds.
+        graph = system.engine.bookkeeper.shadow_graph
+        mark = graph_oracle(graph)
+        live = {tel_inspect._cell_key(cell)
+                for cell, slot in list(graph.slot_of.items())
+                if slot < mark.size and mark[slot]}
+        res["oracle_marked"] = len(live)
+        res["oracle_live"] = live & set(snap["actors"])
+        res["snapshot_live"] = snapshot_live_set(snap)
+        # telemetry_dump --from-jsonl against a live scrape, the event
+        # stream paused so both see the same events
+        events.recorder.disable()
+        try:
+            time.sleep(0.2)  # commits in flight reach every listener
+            tel.jsonl.flush()
+            with urllib.request.urlopen(base + "/metrics.json",
+                                        timeout=30) as rsp:
+                res["scrape"] = json.loads(rsp.read())
+            rc, out = tool_main(telemetry_dump.main,
+                                ["--from-jsonl", jsonl_path, "--format",
+                                 "json"])
+            res["replay_rc"], res["replay"] = rc, json.loads(out)
+        finally:
+            events.recorder.enable()
+        # uigc_top --url --once --plain
+        res["top_rc"], res["top"] = tool_main(
+            uigc_top.main, ["--url", base, "--once", "--plain"])
+        return res
+
+    return probe
+
+
+def counter_samples(snapshot):
+    """{(metric, suffix, labels without node): value} of a registry
+    snapshot's counters."""
+    out = {}
+    for name, entry in snapshot.items():
+        if entry.get("kind") != "counter":
+            continue
+        for sample in entry["samples"]:
+            labels = tuple(sorted((k, v) for k, v in sample["labels"].items()
+                                  if k != "node"))
+            out[(name, sample["suffix"], labels)] = sample["value"]
+    return out
+
+
+def tools_live(device):
+    """14c: phase 6's tree on ``device`` auto with the device observatory,
+    the inspector, the time series, a JSONL sink and an HTTP port on;
+    while it is held, each tool reads the live node.  Returns the run's
+    launches per form."""
+    label = f"tree{TOOLS_TREE['n_actors'] // 1000}k/device/auto/tools"
+    sink_dir = tempfile.mkdtemp(prefix="uigc_tools_")
+    jsonl_path = os.path.join(sink_dir, "events.jsonl")
+    config = {"uigc.crgc.shadow-graph": "device", "uigc.crgc.device": device,
+              "uigc.crgc.trace-mode": "auto", "uigc.crgc.wakeup-interval": 10,
+              "uigc.telemetry.wake-profile": True,
+              "uigc.telemetry.metrics": True, "uigc.telemetry.device": True,
+              "uigc.telemetry.inspect": True, "uigc.telemetry.leak-waves": 0,
+              "uigc.telemetry.timeseries": True,
+              "uigc.telemetry.http-port": 0,
+              "uigc.telemetry.jsonl-path": jsonl_path}
+    prop.reset_launches()
+    t0 = time.perf_counter()
+    try:
+        with TraceLaunches() as log:
+            r = run_tree(config=config, timeout_s=LIVE_TIMEOUT_S,
+                         hold_wakes=HOLD_WAKES,
+                         probe=tools_live_probe(log, jsonl_path),
+                         **TOOLS_TREE)
+    except (AssertionError, RuntimeError, OSError, ValueError) as exc:
+        raise SmokeFailure(f"tools {label}: {exc}") from exc
+    finally:
+        shutil.rmtree(sink_dir, ignore_errors=True)
+    seconds = time.perf_counter() - t0
+    launches = dict(prop.launches)
+    res = r["probe"]["held"]
+    check(r["held_wakes"] >= HOLD_WAKES,
+          f"tools {label}: held {r['held_wakes']} wakes")
+    if device == "cuda":
+        check(sum(launches.values()) > 0,
+              f"tools {label}: the kernel never launched in the collector")
+    say(f"[tools] {label} actors={r['n_collected']} "
+        f"build_s={r['build_s']:.3f} collect_s={r['collect_s']:.3f} "
+        f"held_wakes={r['held_wakes']} wakes={r['wakes']} "
+        f"launches={launches} seconds={seconds:.2f} url={res['base']}")
+
+    # device_report: per-wake attribution against the launch log
+    check(res["device_rc"] == 0 and res["device_report_rc"] == 0,
+          f"tools {label}: device_report exited {res['device_rc']}, "
+          f"{res['device_report_rc']}")
+    doc = res["device_doc"]
+    problems = validate_device_doc(doc)
+    check(not problems, f"tools {label}: /device {problems}")
+    wakes = [w for w in doc["recent_wakes"] if w.get("n_sweeps")]
+    traced = res["trace_launches"]
+    check(wakes and len(traced) >= len(wakes),
+          f"tools {label}: {len(wakes)} device-active wakes in /device, "
+          f"{len(traced)} collector traces logged")
+    tail = traced[-len(wakes):]
+    per_sweep = []
+    for wake, delta in zip(wakes, tail):
+        k = int(wake["n_sweeps"])
+        attributed = sum(wake.get("sweep_device_ms") or [])
+        device_ms = wake["device_s"] * 1e3
+        check(abs(attributed - device_ms) <= 0.10 * device_ms + 1e-6,
+              f"tools {label}: sweep attribution {attributed:.4f} ms of "
+              f"a wake's {device_ms:.4f} ms")
+        if device == "cuda":
+            check(delta > 0 and delta % k == 0,
+                  f"tools {label}: a wake of {k} sweeps launched {delta}")
+            per_sweep.append(delta // k)
+    sweeps = sum(int(w["n_sweeps"]) for w in wakes)
+    say(f"[tools] device_report --url: {len(wakes)} device-active wakes, "
+        f"{sweeps} sweeps, {sum(tail)} launches logged for them "
+        f"(launches per sweep {sorted(set(per_sweep))}: one per packed "
+        f"layout); attribution within 10% of each wake's device time; "
+        f"device_per_wake_ms="
+        f"{device_report.measured_wake_figures(doc)['device_per_wake_ms']:.4f}"
+        f" committed=none (no H100 round); ledger total_bytes="
+        f"{doc['ledger']['total_bytes']} device_bytes="
+        f"{doc['ledger']['device_bytes']} by family "
+        + str({fam: t["host"] + t["device"]
+               for fam, t in sorted(doc["ledger"]["families"].items())}))
+    check("wake budget" in res["device_report"],
+          f"tools {label}: device_report rendered no wake budget")
+
+    # graph_inspect: snapshot, why-live, self-check, the oracle
+    check(res["snapshot_rc"] == 0 and res["why_live_rc"] == 0,
+          f"tools {label}: graph_inspect exited {res['snapshot_rc']}, "
+          f"{res['why_live_rc']}")
+    verdict, hops, parents = res["why_live_leaf"]
+    check(verdict == "live" and hops > 0,
+          f"tools {label}: why-live of the leaf came out {verdict}")
+    check(not res["selfcheck_problems"],
+          f"tools {label}: why-live problems {res['selfcheck_problems'][:3]}")
+    check(res["snapshot_live"] == res["oracle_live"],
+          f"tools {label}: the snapshot's live set ({len(res['snapshot_live'])}"
+          f") differs from trace_marks_np's over the snapshot's actors "
+          f"({len(res['oracle_live'])}): "
+          f"{len(res['snapshot_live'] ^ res['oracle_live'])} keys")
+    say(f"[tools] graph_inspect --url: snapshot of "
+        f"{res['snapshot_actors']} actors, live set "
+        f"{len(res['snapshot_live'])} equal to trace_marks_np's over them "
+        f"(the graph, read after it, marked {res['oracle_marked']}); why-live "
+        f"of a leaf live in {hops} hops (parents {parents}); "
+        f"{res['selfcheck_checked']} why-live paths validated, 0 problems")
+
+    # telemetry_dump --from-jsonl against the live scrape
+    check(res["replay_rc"] == 0, f"tools {label}: telemetry_dump exited "
+          f"{res['replay_rc']}")
+    replay = counter_samples(res["replay"])
+    live = counter_samples(res["scrape"])
+    differ = {k: (v, live.get(k)) for k, v in replay.items()
+              if live.get(k) != v}
+    check(replay and not differ,
+          f"tools {label}: replayed counters differ from the scrape: "
+          f"{list(differ.items())[:5]}")
+    say(f"[tools] telemetry_dump --from-jsonl: {len(replay)} counter "
+        f"samples of {len({k[0] for k in replay})} counters equal to the "
+        f"live /metrics.json scrape")
+
+    # uigc_top: the device panel with numbers
+    check(res["top_rc"] == 0, f"tools {label}: uigc_top exited "
+          f"{res['top_rc']}")
+    panel = [ln for ln in res["top"].splitlines() if ln.startswith("device:")]
+    check(panel and panel[0].startswith("device: ledger")
+          and not re.search(r"(^|[\s(/])-($|[\s)hmB/])", panel[0]),
+          f"tools {label}: uigc_top's device panel has a dash: {panel}")
+    say(f"[tools] uigc_top --url --once --plain: {panel[0]}")
+    return launches
+
+
+def phase_tools(graph, prep, jump_parent, marks, kernels, device="cuda"):
+    """Phase 14.  Returns the launches per form of its profile and its
+    live run (the checkers, in their own processes, launch nothing)."""
+    root = os.path.dirname(os.path.abspath(__file__))
+    t0 = time.perf_counter()
+    total = tools_profile(graph, prep, jump_parent, marks, kernels, device)
+    t1 = time.perf_counter()
+    # after the profile, whose host clock they would share
+    checkers = tools_checker_start(root)
+    try:
+        for form, count in tools_live(device).items():
+            total[form] += count
+        t2 = time.perf_counter()
+    except BaseException:
+        for proc, _t0 in checkers.values():
+            proc.kill()
+            proc.wait()
+        raise
+    tools_checker_finish(checkers)
+    t3 = time.perf_counter()
+    say(f"[tools] launches={total} seconds: profile={t1 - t0:.1f} "
+        f"live={t2 - t1:.1f} checker_wait={t3 - t2:.1f} phase={t3 - t0:.1f}")
+    return total
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; nothing was run",
@@ -3393,7 +3852,8 @@ def main():
     sparse_sweep_timing(graph, lay, dev, push_dirty, errs)
     phase_profile(graph, lay, jp_dev, dev)
     elapsed("phases 1-4")
-    del lay, prep, table, jp_dev  # the graph and marks stay for phase 8
+    # the graph and marks stay for phase 8, the host layout for phase 14
+    del lay, table, jp_dev
     torch.cuda.empty_cache()
 
     prop.reset_launches()
@@ -3446,6 +3906,12 @@ def main():
     gateway_launches = phase_gateway(errs)
     elapsed("phase 13")
 
+    torch.cuda.empty_cache()
+    tools_launches = phase_tools(graph, prep, jp, marks, kernels)
+    check(sum(tools_launches.values()) > 0,
+          f"the kernel never launched in phase 14: {tools_launches}")
+    elapsed("phase 14")
+
     for form, row in kernels.items():
         row["launches"] = live_launches[form]
         row["launches_by_phase"] = {"trace_10M": main_launches[form],
@@ -3457,7 +3923,8 @@ def main():
                                     "multi_node": cluster_launches[form],
                                     "multi_process": procs_launches[form],
                                     "sharding": sharding_launches[form],
-                                    "gateway": gateway_launches[form]}
+                                    "gateway": gateway_launches[form],
+                                    "tools": tools_launches[form]}
         row["max_abs_err"] = errs[form]
     order = ("name", "route", "source", "replaces", "launches",
              "launches_by_phase", "max_abs_err", "ms", "plain_ms", "bound_ms",

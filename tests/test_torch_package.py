@@ -62,7 +62,15 @@ MODULES = ("utils/validation.py", "utils/events.py", "utils/platform.py",
            "cluster/journal.py", "cluster/membership.py",
            "gateway/__init__.py", "gateway/protocol.py",
            "gateway/admission.py", "gateway/session.py",
-           "gateway/gateway.py")
+           "gateway/gateway.py", "analysis/check/__init__.py",
+           "analysis/check/core.py", "analysis/check/lint_rules.py",
+           "analysis/check/locks.py", "analysis/check/purity.py",
+           "analysis/check/surface.py", "analysis/check/configdoc.py",
+           "analysis/check/cli.py", "tools/__init__.py",
+           "tools/uigc_check.py", "tools/uigc_lint.py",
+           "tools/uigc_lint_allow.txt", "tools/telemetry_dump.py",
+           "tools/graph_inspect.py", "tools/uigc_top.py",
+           "tools/device_report.py", "tools/sweep_profile.py", "CONFIG.md")
 
 
 def imported_roots(path):
@@ -124,6 +132,12 @@ def test_port_imports_with_jax_blocked():
         "from uigc_tpu_torch.gateway import ClientRef, IngressGateway\n"
         "from uigc_tpu_torch.models import run_cluster_recovery\n"
         "from uigc_tpu_torch import ActorSystem, ActorTestKit\n"
+        "import uigc_tpu_torch.analysis.check\n"
+        "from uigc_tpu_torch.analysis.check import run_check\n"
+        "import uigc_tpu_torch.tools\n"
+        "from uigc_tpu_torch.tools import (device_report, graph_inspect,\n"
+        "    sweep_profile, telemetry_dump, uigc_check, uigc_lint,\n"
+        "    uigc_top)\n"
         "assert 'jax' not in [m.split('.')[0] for m in sys.modules\n"
         "                     if sys.modules[m] is not None]\n"
         "print('IMPORT OK')\n"

@@ -1,7 +1,5 @@
 """Copy of ``uigc_tpu/analysis/__init__.py``: the sanitizer and the race
-detector.  The reference's static analyzers (``analysis/check/``, and
-the lint suite it names below) are not ported yet (ROADMAP.md Queue 1
-item 10b).
+detector; the static checker is the subpackage :mod:`.check`.
 
 Correctness tooling for the actor runtime and its GC engines.
 
@@ -16,8 +14,10 @@ Three parts (see GUIDE.md "Correctness tooling"):
   ``sched.*`` scheduling event stream that checks the documented
   invariants of :mod:`uigc_tpu.runtime.cell` (single-threaded cell
   processing, system-before-app ordering, children-stop-before-PostStop).
-- ``tools/uigc_lint.py`` — the AST lint suite (not importable from the
-  package; run it on source trees).
+- :mod:`uigc_tpu_torch.analysis.check` — uigc-check, the static
+  checker (lint, surface registry, lock graph, purity), run as
+  ``python -m uigc_tpu_torch.tools.uigc_check`` and its lint pass alone
+  as ``python -m uigc_tpu_torch.tools.uigc_lint``.
 """
 
 from .race import RaceDetector, VectorClock

@@ -493,7 +493,7 @@ DEFAULTS: Dict[str, Any] = {
     "uigc.gateway.overload-p99-ms": 250.0,
     # Fabric writer-queue depth band: above it the overload controller
     # sheds new work AND per-connection reads throttle (the one-hop
-    # extension of the PR 12 backpressure plane); exit at half.
+    # extension of the durability/backpressure plane); exit at half.
     # 0 disables the depth trigger.
     "uigc.gateway.overload-queue-depth": 4096,
     # The retry_after_ms hint stamped on every shed ERROR frame.

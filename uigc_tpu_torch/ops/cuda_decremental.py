@@ -168,7 +168,7 @@ def _build_wake_fn(
         table = mark_w & nh_w
         d, _ = dirty_chunks(table, prev_table)
         trans_w = iu_w & nh_w  # jump-transparent intermediates
-        n_dirty = int(d[n_chunks])  # host sync
+        n_dirty = int(d[n_chunks])  # readback: the loop's changed flag
         host_syncs += 1
         run = n_dirty > 0
         if not run:
@@ -220,7 +220,7 @@ def _build_wake_fn(
             # monotone dirty machinery is sufficient (and cheaper) after.
             use_gate = False
             sweeps += 1
-            n_dirty = int(d[n_chunks])  # host sync
+            n_dirty = int(d[n_chunks])  # readback: the changed flag, per sweep
             host_syncs += 1
             run = n_dirty > 0
         out = (mark_w, seed_w, halted_w, iu_w, table)

@@ -857,7 +857,7 @@ def _build_trace_fn_multi(
         d, _, sup_ch = dirty(table, torch.zeros_like(table))
         sat = (saturated_tiles(mark_w, iu_w, n_super, sup_words)
                if use_pull else None)
-        n_dirty = int(d[n_chunks])  # host sync: the loop's changed flag
+        n_dirty = int(d[n_chunks])  # readback: the loop's changed flag
         host_syncs = 1
         sweeps = 0
         if with_stats:
@@ -895,7 +895,7 @@ def _build_trace_fn_multi(
             d, _, sup_ch = dirty(new_table, table)
             mark_w, table = new_mark_w, new_table
             sweeps += 1
-            n_dirty = int(d[n_chunks])  # host sync
+            n_dirty = int(d[n_chunks])  # readback: the changed flag, per sweep
             host_syncs += 1
         marks = unpack_table(mark_w, n)
         if not with_stats:
@@ -971,7 +971,7 @@ def _host(x):
     """A stats value as the reference returns it: numpy."""
     if isinstance(x, torch.Tensor):
         return x.cpu().numpy()  # readback: host boundary: stats -> np
-    return np.asarray(x)
+    return np.asarray(x)  # readback: not a tensor: a host value already
 
 
 def trace_marks_prepared(flags, recv_count, prep: Dict, device=None) -> np.ndarray:
@@ -1052,17 +1052,17 @@ def trace_marks_cuda(
     inside; runs on ``device`` (default: the CUDA card)."""
     dev = resolve_device(device)
     n = flags.shape[0]
-    edge_src = np.asarray(edge_src)
-    edge_dst = np.asarray(edge_dst)
-    edge_weight = np.asarray(edge_weight)
-    supervisor = np.asarray(supervisor)
+    edge_src, edge_dst, edge_weight, supervisor = (
+        np.asarray(a)  # readback: host inputs, as trace_marks_np takes them
+        for a in (edge_src, edge_dst, edge_weight, supervisor))
     prep = prepare_chunks(edge_src, edge_dst, edge_weight, supervisor, n)
     jp = None
     if mode in (MODE_JUMP, MODE_AUTO):
         jp = jump_parents_from_graph(edge_src, edge_dst, edge_weight,
                                      supervisor, n)
     return trace_marks_layouts(
-        np.asarray(flags), np.asarray(recv_count), [prep], device=dev,
+        np.asarray(flags), np.asarray(recv_count),  # readback: host inputs
+        [prep], device=dev,
         mode=mode, jump_parent=jp,
     )
 
@@ -1091,7 +1091,8 @@ def marking_parents_torch(flags, recv_count, supervisor, edge_src, edge_dst,
     dev = resolve_device(device)
 
     def put(a, dtype):
-        return torch.as_tensor(np.asarray(a), device=dev).to(dtype)
+        host = np.asarray(a)  # readback: host inputs, numpy or a list
+        return torch.as_tensor(host, device=dev).to(dtype)
 
     flags = put(flags, torch.uint8)
     recv_count = put(recv_count, torch.int64)
@@ -1131,4 +1132,4 @@ def marking_parents_torch(flags, recv_count, supervisor, edge_src, edge_dst,
         parent = torch.where(newly, cand, parent)
         mark = mark | newly
     return (mark.cpu().numpy(),  # readback: host boundary: np result contract
-            parent.to(torch.int32).cpu().numpy())
+            parent.to(torch.int32).cpu().numpy())  # readback: the same

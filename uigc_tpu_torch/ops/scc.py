@@ -131,7 +131,8 @@ def scc_labels_torch(
         active = np.ones(n, dtype=bool)
 
     def put(a, dtype):
-        return torch.as_tensor(np.asarray(a), device=dev).to(dtype)
+        host = np.asarray(a)  # readback: host inputs, numpy or a list
+        return torch.as_tensor(host, device=dev).to(dtype)
 
     edge_src = put(edge_src, torch.int32)
     edge_dst = put(edge_dst, torch.int32)
@@ -206,7 +207,7 @@ def scc_labels_torch(
         labels = torch.where(reach, color, labels)
         assigned = assigned | reach
 
-    out = labels.cpu().numpy()
+    out = labels.cpu().numpy()  # readback: host boundary: np result contract
     if with_stats:
         return out, {"rounds": rounds, "sweeps": sweeps,
                      "host_reads": host_reads}

@@ -178,7 +178,8 @@ def trace_marks_torch(
     dev = resolve_device(device)
 
     def put(a, dtype):
-        return torch.as_tensor(np.asarray(a), device=dev).to(dtype)
+        host = np.asarray(a)  # readback: host inputs, numpy or a list
+        return torch.as_tensor(host, device=dev).to(dtype)
 
     flags = put(flags, torch.uint8)
     recv_count = put(recv_count, torch.int64)
@@ -208,7 +209,7 @@ def trace_marks_torch(
                              include_self=True)
         new_mark = (mark | (prop[:n] > 0)) & in_use
         if not bool((new_mark != mark).any()):
-            return mark.cpu().numpy()
+            return mark.cpu().numpy()  # readback: np result contract
         mark = new_mark
 
 

@@ -169,7 +169,8 @@ def _kept(idx, bound: int, *vals):
     (its ``mode="drop"`` scatters and sink rows) is dropped here."""
     idx = np.asarray(idx, dtype=np.int64)
     keep = idx < bound
-    return (idx[keep],) + tuple(np.asarray(v)[keep] for v in vals)
+    return (idx[keep],) + tuple(
+        np.asarray(v)[keep] for v in vals)  # readback: host scatter batches
 
 
 # --------------------------------------------------------------------- #
@@ -388,7 +389,7 @@ class _ShardOps:
 
     def n_dirty(self, ds) -> int:
         """The dirty walk groups: the sweep's one host read."""
-        return int(ds[0][self.n_chunks])  # host sync
+        return int(ds[0][self.n_chunks])  # readback: the loop's changed flag
 
     def zero_gates(self) -> List[torch.Tensor]:
         return [torch.zeros(self.n_super, dtype=torch.int32, device=dev)
@@ -762,7 +763,7 @@ def make_sharded_decremental_wake(
         # when the table moved or any shard has a suspect tile (the
         # reference's psum).
         dev0 = mesh.devices[0]
-        n_dirty, *suspects = torch.stack(  # host sync
+        n_dirty, *suspects = torch.stack(  # readback: the run-gate decision
             [d[0][ops.n_chunks].to(torch.int64)]
             + [g.sum().to(dev0) for g in suspect_g]).tolist()
         run = n_dirty > 0 or sum(suspects) > 0
