@@ -327,7 +327,11 @@ DEFAULTS: Dict[str, Any] = {
     # Causal message tracing: trace/span ids stamped on every send,
     # propagated across NodeFabric frames as an optional header
     # (version-tolerant: peers without tracing ignore it), exportable as
-    # Chrome-trace/Perfetto JSON.  Off by default — it is per-message
+    # Chrome-trace/Perfetto JSON, with each gc_wave holding the mark
+    # fixpoint's uigc.* spans as children (a running torch profiler
+    # records those spans too, tracing on or off).  The spans are the
+    # layout sync, upload, seed, sweeps and their glue, changed-flag
+    # waits, unpack and readback.  Off by default — it is per-message
     # overhead.
     "uigc.telemetry.tracing": False,
     # Collector wake profiler: break each Bookkeeper wake into

@@ -84,10 +84,12 @@ def _readback(value, site: str) -> np.ndarray:
     and account the transfer as a ``tpu.host_transfer`` event (site +
     bytes; the device observatory attributes it to the active wake
     phase).  Route readbacks through here."""
-    if isinstance(value, torch.Tensor):
-        out = value.cpu().numpy()  # readback: the sanctioned crossing itself
-    else:
-        out = np.asarray(value)  # readback: already on the host
+    with events.span("uigc.marks.readback", site=site) as span:
+        if isinstance(value, torch.Tensor):
+            out = value.cpu().numpy()  # readback: the sanctioned crossing
+        else:
+            out = np.asarray(value)  # readback: already on the host
+        span.set(bytes=int(out.nbytes))
     if events.recorder.enabled:
         events.recorder.commit(
             events.HOST_TRANSFER, site=site, bytes=int(out.nbytes)
@@ -1030,10 +1032,11 @@ class ArrayShadowGraph:
         """Flags and receive counts as tensors on the device: synchronous
         copies, so the host may go on folding into ``self.flags`` and
         ``self.recv_count`` once this returns."""
-        return (
-            torch.from_numpy(self.flags).to(self.device, copy=True),
-            torch.from_numpy(self.recv_count).to(self.device, copy=True),
-        )
+        with events.span("uigc.marks.upload"):
+            return (
+                torch.from_numpy(self.flags).to(self.device, copy=True),
+                torch.from_numpy(self.recv_count).to(self.device, copy=True),
+            )
 
     def _compute_marks_cuda(self, ev=None) -> torch.Tensor:
         """Device trace through the propagate kernel; returns the (n,)
@@ -1071,25 +1074,29 @@ class ArrayShadowGraph:
         change, or log overflow (``_pair_log is None``); otherwise fold
         the log and repack when accumulated churn crosses the layout's
         threshold.  Returns the up-to-date object."""
-        if obj is None or self._pair_log is None:
-            if obj is None or obj.n != self.capacity:
-                obj = make()
-            obj.rebuild(
-                self.edge_src, self.edge_dst, self.edge_weight, self.supervisor
-            )
-            self.rebuilds += 1
-            self._pair_log = []
-        elif self._pair_log:
-            obj.apply_log(self._pair_log)
-            self._pair_log.clear()
-            if needs_repack(obj):
+        rebuilds = self.rebuilds
+        with events.span("uigc.marks.layout_sync") as span:
+            if obj is None or self._pair_log is None:
+                if obj is None or obj.n != self.capacity:
+                    obj = make()
                 obj.rebuild(
-                    self.edge_src,
-                    self.edge_dst,
-                    self.edge_weight,
+                    self.edge_src, self.edge_dst, self.edge_weight,
                     self.supervisor,
                 )
                 self.rebuilds += 1
+                self._pair_log = []
+            elif self._pair_log:
+                obj.apply_log(self._pair_log)
+                self._pair_log.clear()
+                if needs_repack(obj):
+                    obj.rebuild(
+                        self.edge_src,
+                        self.edge_dst,
+                        self.edge_weight,
+                        self.supervisor,
+                    )
+                    self.rebuilds += 1
+            span.set(rebuilt=self.rebuilds > rebuilds)
         return obj
 
     def _compute_marks_decremental(self, ev=None) -> torch.Tensor:

@@ -19,7 +19,9 @@ What it keeps, and how:
   pull, jump, auto).  The reference's loop is one device program
   (``jax.lax.while_loop``); here the loop runs on the host and reads the
   dirty count once per sweep.  Those reads are counted in the stats as
-  ``host_syncs``.
+  ``host_syncs``.  The loop's stretches are ``uigc.fixpoint.*`` spans
+  (``utils/events.py`` ``span``): the seed, each sweep with its gates,
+  propagation, jump and dirty lists, each changed-flag wait, the unpack.
 - **The layout conversion.**  :func:`layout_to_device` turns a packed
   layout of numpy arrays, from either package's packer, into the port's
   tensors; :func:`graph_to_device` does the same for a graph dict.
@@ -301,19 +303,21 @@ def build_sweep_contribs(specs, n, n_super, s_rows):
             if spec[0] == "xla":
                 psrc, pdst = layout_args[pos:pos + 2]
                 pos += 2
-                # Source-active bits straight from the packed table; sink
-                # pads (src = n) read as 0 (bits_at clamps the word index,
-                # which can be one row past the table for them).
-                src_active = bits_at(table, psrc, n).to(torch.int32)
-                prop = torch.zeros(n_pad_nodes + 1, dtype=torch.int32,
-                                   device=dev)
-                prop.scatter_reduce_(0, pdst.long(), src_active, "amax",
-                                     include_self=True)
-                hits = pack_hits_words(
-                    prop[:n_pad_nodes].reshape(t_rows, LANE) > 0
-                )
-                flat = words.view(-1)
-                flat[: hits.numel()] |= hits
+                with events.span("uigc.fixpoint.propagate", form="xla"):
+                    # Source-active bits straight from the packed table;
+                    # sink pads (src = n) read as 0 (bits_at clamps the
+                    # word index, which can be one row past the table for
+                    # them).
+                    src_active = bits_at(table, psrc, n).to(torch.int32)
+                    prop = torch.zeros(n_pad_nodes + 1, dtype=torch.int32,
+                                       device=dev)
+                    prop.scatter_reduce_(0, pdst.long(), src_active, "amax",
+                                         include_self=True)
+                    hits = pack_hits_words(
+                        prop[:n_pad_nodes].reshape(t_rows, LANE) > 0
+                    )
+                    flat = words.view(-1)
+                    flat[: hits.numel()] |= hits
                 continue
             if spec[0] == "compact":
                 bmeta1, bmeta2, row_pos, emeta, super_ids = layout_args[
@@ -325,11 +329,12 @@ def build_sweep_contribs(specs, n, n_super, s_rows):
                 pos += 4
                 super_ids = None
             sub, group = spec[-2:]
-            propagate_words(
-                d, bmeta1, bmeta2, table, row_pos, emeta, words,
-                n_super=n_super, s_rows=s_rows, sub=sub, group=group,
-                gate=gate, super_ids=super_ids,
-            )
+            with events.span("uigc.fixpoint.propagate", form=spec[0]):
+                propagate_words(
+                    d, bmeta1, bmeta2, table, row_pos, emeta, words,
+                    n_super=n_super, s_rows=s_rows, sub=sub, group=group,
+                    gate=gate, super_ids=super_ids,
+                )
         return words
 
     return sweep
@@ -836,71 +841,89 @@ def _build_trace_fn_multi(
                 None)
 
     def trace_fn(flags, recv_count, *rest):
+        with events.span("uigc.fixpoint", layouts=len(specs),
+                         mode=mode) as fixpoint:
+            marks, sweeps, waits, st = run(flags, recv_count, *rest)
+            fixpoint.set(sweeps=sweeps, waits=waits)
+        if not with_stats:
+            return marks
+        return marks, dict(st, n_sweeps=sweeps, host_syncs=waits)
+
+    def run(flags, recv_count, *rest):
         if use_jump:
             jump_j, *layout_args = rest
             jump_j = jump_j.to(torch.int32)
         else:
             jump_j, layout_args = None, rest
         dev = flags.device
-        in_use = F.flag_set(flags, F.FLAG_IN_USE)
-        halted = F.flag_set(flags, F.FLAG_HALTED)
-        mark0 = in_use & ~halted & F.seeds_torch(flags, recv_count)
+        with events.span("uigc.fixpoint.seed"):
+            in_use = F.flag_set(flags, F.FLAG_IN_USE)
+            halted = F.flag_set(flags, F.FLAG_HALTED)
+            mark0 = in_use & ~halted & F.seeds_torch(flags, recv_count)
 
-        # Gate tables: in_use bits (mark gating) and ~halted bits
-        # (propagation gating); bits >= n stay 0 in both.
-        iu_w = pack_bools(in_use, n, r_rows)
-        nh_w = pack_bools(~halted, n, r_rows)
-        trans_w = iu_w & nh_w  # jump-transparent intermediates
+            # Gate tables: in_use bits (mark gating) and ~halted bits
+            # (propagation gating); bits >= n stay 0 in both.
+            iu_w = pack_bools(in_use, n, r_rows)
+            nh_w = pack_bools(~halted, n, r_rows)
+            trans_w = iu_w & nh_w  # jump-transparent intermediates
 
-        mark_w = pack_bools(mark0, n, r_rows)
-        table = mark_w & nh_w
-        d, _, sup_ch = dirty(table, torch.zeros_like(table))
-        sat = (saturated_tiles(mark_w, iu_w, n_super, sup_words)
-               if use_pull else None)
-        n_dirty = int(d[n_chunks])  # readback: the loop's changed flag
-        host_syncs = 1
+            mark_w = pack_bools(mark0, n, r_rows)
+            table = mark_w & nh_w
+            d, _, sup_ch = dirty(table, torch.zeros_like(table))
+            sat = (saturated_tiles(mark_w, iu_w, n_super, sup_words)
+                   if use_pull else None)
+        with events.span("uigc.fixpoint.wait"):
+            n_dirty = int(d[n_chunks])  # readback: the loop's changed flag
+        waits = 1
         sweeps = 0
+        st = None
         if with_stats:
             st = {k: torch.zeros(MAX_SWEEP_STATS, dtype=torch.int32,
                                  device=dev)
                   for k in ("dirty_chunks", "changed_supers",
                             "tiles_skipped", "pull_on")}
         while n_dirty > 0:
-            gate = None
-            pull_on = False
-            if use_pull:
-                # Destination-side pull gates: marks only grow within one
-                # fixpoint, so saturation only latches on, and a tile can
-                # only flip where the level-1 summary fired last sweep.
-                sat = torch.where(
-                    sup_ch > 0,
-                    saturated_tiles(mark_w, iu_w, n_super, sup_words),
-                    sat,
-                )
-                pull_on = mode != MODE_AUTO or n_dirty >= pull_cut
-                gate = sat * GATE_SKIP if pull_on else torch.zeros_like(sat)
-            hit_w = sweep(table, d, layout_args, gate=gate)
-            new_mark_w = mark_w | (hit_w & iu_w)
-            if use_jump:
-                jh, jump_j = jump_sweep(table, jump_j, trans_w, n)
-                new_mark_w |= pack_bools(jh, n, r_rows) & iu_w
-            new_table = new_mark_w & nh_w
-            if with_stats:
-                i = min(sweeps, MAX_SWEEP_STATS - 1)
-                st["dirty_chunks"][i] = n_dirty
-                st["changed_supers"][i] = sup_ch.sum()
+            pull_on = use_pull and (mode != MODE_AUTO or n_dirty >= pull_cut)
+            with events.span("uigc.fixpoint.sweep", dirty_groups=n_dirty,
+                             pull=pull_on):
+                gate = None
                 if use_pull:
-                    st["tiles_skipped"][i] = sat.sum() if pull_on else 0
-                    st["pull_on"][i] = int(pull_on)
-            d, _, sup_ch = dirty(new_table, table)
-            mark_w, table = new_mark_w, new_table
-            sweeps += 1
-            n_dirty = int(d[n_chunks])  # readback: the changed flag, per sweep
-            host_syncs += 1
-        marks = unpack_table(mark_w, n)
-        if not with_stats:
-            return marks
-        return marks, dict(st, n_sweeps=sweeps, host_syncs=host_syncs)
+                    # Destination-side pull gates: marks only grow within
+                    # one fixpoint, so saturation only latches on, and a
+                    # tile can only flip where the level-1 summary fired
+                    # last sweep.
+                    with events.span("uigc.fixpoint.gate"):
+                        sat = torch.where(
+                            sup_ch > 0,
+                            saturated_tiles(mark_w, iu_w, n_super, sup_words),
+                            sat,
+                        )
+                        gate = (sat * GATE_SKIP if pull_on
+                                else torch.zeros_like(sat))
+                hit_w = sweep(table, d, layout_args, gate=gate)
+                new_mark_w = mark_w | (hit_w & iu_w)
+                if use_jump:
+                    with events.span("uigc.fixpoint.jump"):
+                        jh, jump_j = jump_sweep(table, jump_j, trans_w, n)
+                        new_mark_w |= pack_bools(jh, n, r_rows) & iu_w
+                new_table = new_mark_w & nh_w
+                if with_stats:
+                    i = min(sweeps, MAX_SWEEP_STATS - 1)
+                    st["dirty_chunks"][i] = n_dirty
+                    st["changed_supers"][i] = sup_ch.sum()
+                    if use_pull:
+                        st["tiles_skipped"][i] = sat.sum() if pull_on else 0
+                        st["pull_on"][i] = int(pull_on)
+                with events.span("uigc.fixpoint.dirty"):
+                    d, _, sup_ch = dirty(new_table, table)
+                mark_w, table = new_mark_w, new_table
+                sweeps += 1
+                with events.span("uigc.fixpoint.wait"):
+                    n_dirty = int(d[n_chunks])  # readback: the changed flag
+                waits += 1
+        with events.span("uigc.fixpoint.unpack"):
+            marks = unpack_table(mark_w, n)
+        return marks, sweeps, waits, st
 
     return trace_fn
 

@@ -22,6 +22,11 @@ Span vocabulary (all recorded into a bounded ring, oldest dropped):
 - ``terminate`` an actor reached its terminal state (child of the
                 current span if the stop was processed inside one,
                 otherwise of the wave that sent the StopMsg)
+- ``uigc.*``    the port's own host code under an open span: the mark
+                fixpoint's seed, sweeps, waits and glue, and
+                ``compute_marks``'s layout sync, upload and readback
+                (``utils/events.py`` ``span``; children of the
+                ``gc_wave`` they run in)
 
 Export: :func:`chrome_trace` merges any number of tracers (one per
 node) into the Chrome ``traceEvents`` JSON consumed by
@@ -38,6 +43,8 @@ import threading
 import time
 from collections import deque
 from typing import Any, Dict, Iterable, List, Optional, Tuple
+
+from ..utils import events
 
 #: Wire shape of a trace context: ``(trace_id, span_id)`` — two ints,
 #: pickle- and JSON-friendly.  This is what rides message envelopes
@@ -74,7 +81,12 @@ def decode_header(obj: Any) -> Optional[TraceHeader]:
 
 
 class _ActiveSpan:
-    __slots__ = ("tracer", "name", "ctx", "parent", "args", "start", "prev")
+    """An open span.  While it is open its tracer is the thread's open
+    tracer in ``utils/events.py``, so the port's ``events.span`` sites
+    (the mark fixpoint's) record as its children."""
+
+    __slots__ = ("tracer", "name", "ctx", "parent", "args", "start", "prev",
+                 "prev_tracer")
 
     def __init__(self, tracer: "Tracer", name: str, ctx: TraceHeader,
                  parent: Optional[TraceHeader], args: Dict[str, Any]):
@@ -85,17 +97,20 @@ class _ActiveSpan:
         self.args = args
         self.start = 0.0
         self.prev: Optional[TraceHeader] = None
+        self.prev_tracer: Optional["Tracer"] = None
 
     def __enter__(self) -> "_ActiveSpan":
         tls = self.tracer._tls
         self.prev = getattr(tls, "ctx", None)
         tls.ctx = self.ctx
+        self.prev_tracer = events.swap_span_tracer(self.tracer)
         self.start = time.time()
         return self
 
     def __exit__(self, *exc: Any) -> None:
         end = time.time()
         self.tracer._tls.ctx = self.prev
+        events.swap_span_tracer(self.prev_tracer)
         self.tracer._record(
             self.name, self.ctx, self.parent, self.start, end - self.start, self.args
         )

@@ -12,6 +12,12 @@ profiler (or a test) can observe the pipeline without touching engine code.
 
 Events are disabled by default, like the reference's ``@Enabled(false)``
 flush events; enable with :func:`enable` or per-category.
+
+Ours besides: :func:`span`, a named stretch of the port's own host code
+(the mark fixpoint's seed, sweeps, waits and glue), recorded into
+torch.profiler's host events while a profiler runs and into a
+``telemetry.tracing.Tracer``'s ring while one of its spans is open on the
+thread.  With neither, a span costs two flag reads.
 """
 
 from __future__ import annotations
@@ -24,20 +30,21 @@ from bisect import bisect_left
 from collections import defaultdict
 from typing import Any, Callable, Dict, List, Optional, Tuple
 
+from torch._C._profiler import _RecordFunctionFast
+from torch.autograd import profiler as _profiler
+
 # Event names, mirroring the reference's JFR classes:
-#   crgc/jfr/EntrySendEvent, EntryFlushEvent, ProcessingEntries,
+#   crgc/jfr/EntrySendEvent, ProcessingEntries,
 #   TracingEvent, MergingDeltaGraphs, MergingIngressEntries,
 #   DeltaGraphSerialization, IngressEntrySerialization
-#   mac/jfr/ActorBlockedEvent, ProcessingMessages
+#   mac/jfr/ProcessingMessages
 ENTRY_SEND = "crgc.entry_send"
-ENTRY_FLUSH = "crgc.entry_flush"
 PROCESSING_ENTRIES = "crgc.processing_entries"
 TRACING = "crgc.tracing"
 MERGING_DELTA_GRAPHS = "crgc.merging_delta_graphs"
 MERGING_INGRESS_ENTRIES = "crgc.merging_ingress_entries"
 DELTA_GRAPH_SERIALIZATION = "crgc.delta_graph_serialization"
 INGRESS_ENTRY_SERIALIZATION = "crgc.ingress_entry_serialization"
-ACTOR_BLOCKED = "mac.actor_blocked"
 PROCESSING_MESSAGES = "mac.processing_messages"
 DEVICE_TRACE = "tpu.device_trace"  # ours: one device kernel dispatch
 #: The sweep half of one collection (kill decisions + slot/shadow frees),
@@ -566,3 +573,97 @@ class _Timed:
 
 #: Process-wide recorder, like the JVM-global JFR stream.
 recorder = EventRecorder()
+
+
+# ------------------------------------------------------------------ #
+# Spans
+# ------------------------------------------------------------------ #
+
+class _SpanState(threading.local):
+    """The ``Tracer`` whose span is open on this thread: set and restored
+    by ``telemetry/tracing.py`` ``_ActiveSpan``; every :func:`span`
+    opened under it records a child span in its ring.  The class default
+    makes the read on a thread that never set it a plain lookup (a
+    ``getattr`` default would raise and catch an AttributeError)."""
+
+    tracer: Any = None
+
+
+_SPAN_TLS = _SpanState()
+
+
+def swap_span_tracer(tracer: Any) -> Any:
+    """Make ``tracer`` (or None) the thread's open tracer; returns the
+    one it replaces."""
+    prev = _SPAN_TLS.tracer
+    _SPAN_TLS.tracer = tracer
+    return prev
+
+
+class _NoSpan:
+    """The one span handed out while no sink listens."""
+
+    __slots__ = ()
+
+    def __enter__(self) -> "_NoSpan":
+        return self
+
+    def __exit__(self, *exc: Any) -> None:
+        return None
+
+    def set(self, **args: Any) -> None:
+        return None
+
+
+_NO_SPAN = _NoSpan()
+
+
+class _Span:
+    """A span with at least one sink.  Under a running torch profiler it
+    is a ``_RecordFunctionFast``: a host event at function scope on the
+    profiler's clock, which makes no device-side annotation (a
+    ``record_function`` would, and the device time of a profile would
+    count it).  Under an open ``Tracer`` span it is a child span in that
+    tracer's ring, whose args are this span's, ``set`` included."""
+
+    __slots__ = ("name", "args", "_tracer", "_record", "_ring")
+
+    def __init__(self, name: str, args: Dict[str, Any], tracer: Any):
+        self.name = name
+        self.args = args
+        self._tracer = tracer
+        self._record = None
+        self._ring = None
+
+    def __enter__(self) -> "_Span":
+        if _profiler._is_profiler_enabled:
+            self._record = _RecordFunctionFast(self.name)
+            self._record.__enter__()
+        if self._tracer is not None:
+            self._ring = self._tracer.span(self.name)
+            self._ring.args = self.args
+            self._ring.__enter__()
+        return self
+
+    def set(self, **args: Any) -> None:
+        """Args known only at the span's end (host values, never a
+        tensor read)."""
+        self.args.update(args)
+
+    def __exit__(self, *exc: Any) -> None:
+        if self._ring is not None:
+            self._ring.__exit__(*exc)
+        if self._record is not None:
+            self._record.__exit__(*exc)
+
+
+def span(name: str, **args: Any):
+    """A context manager over a stretch of host code, named ``name``
+    (``uigc.*``), recorded by whichever sink listens: a running torch
+    profiler, a ``Tracer`` span open on the thread, or both.  ``args``
+    and later :meth:`_Span.set` calls hold host values only; a span never
+    reads a tensor."""
+    tracer = _SPAN_TLS.tracer
+    if tracer is None and not _profiler._is_profiler_enabled:
+        return _NO_SPAN
+    return _Span(name, args, tracer)
