@@ -295,6 +295,9 @@ F32_OPS_S = 67e12
 N_MAIN = 10_000_000
 #: the push sweep (1-based) whose inputs the sparse-sweep timing reads
 SPARSE_SWEEP = 8
+#: sweeps of the jump kernel's 10M check and timing: an auto trace's
+#: sweeps on the power-law graph (phase 4 prints them)
+JUMP_SWEEPS = 7
 N_CHURN = 1_000_000
 MODES = ("push", "pull", "jump", "auto")
 #: phase 6: (label, workload, its arguments, backend, trace-mode,
@@ -423,6 +426,9 @@ TOOLS_WHY_LIVE_SAMPLE = 8
 TOOLS_CHECK_TIMEOUT_S = 300
 KERNEL_SOURCE = "uigc_tpu_torch/csrc/propagate.cu"
 REPLACES = "uigc_tpu/ops/pallas_trace.py:983"
+#: the jump kernel replaces no Pallas kernel: the reference's jump step is
+#: a jnp expression (with bits_at and the pack after it)
+JUMP_REPLACES = "none (jnp: uigc_tpu/ops/pallas_trace.py:341 jump_sweep)"
 
 
 class SmokeFailure(Exception):
@@ -695,6 +701,71 @@ def main_layout_timing(lay, table, dev, errs):
     return rows
 
 
+def jump_operands(graph, r_rows, dev):
+    """The jump step's word planes at the fixpoint's seed, as the trace
+    fn makes them: (table, trans_w, iu_w, nh_w)."""
+    n = graph["flags"].shape[0]
+    flags = torch.from_numpy(graph["flags"]).to(dev)
+    recv = torch.from_numpy(graph["recv_count"]).to(dev)
+    in_use = F.flag_set(flags, F.FLAG_IN_USE)
+    halted = F.flag_set(flags, F.FLAG_HALTED)
+    iu_w = ct.pack_bools(in_use, n, r_rows)
+    nh_w = ct.pack_bools(~halted, n, r_rows)
+    table = ct.pack_bools(in_use & ~halted & F.seeds_torch(flags, recv), n,
+                          r_rows) & nh_w
+    return table, iu_w & nh_w, iu_w, nh_w
+
+
+def jump_twin(table, jump_j, trans_w, iu_w, n):
+    """The jump kernel's plain twin on CUDA tensors (what
+    ct.jump_sweep_words runs on CPU tensors)."""
+    hits, new_j = ct.jump_sweep(table, jump_j, trans_w, n)
+    return ct.pack_bools(hits, n, table.shape[0]) & iu_w, new_j
+
+
+def main_jump_timing(graph, jp_dev, r_rows, dev, errs):
+    """The jump kernel at 10M over JUMP_SWEEPS sweeps' parents and
+    tables (each sweep's doubled parents and jump hits feed the next):
+    hit words and parents equal to the plain twin's, the caller's
+    parents untouched, then the median of 20 launches per sweep, the
+    twin's on the first sweep's inputs, and the byte bound."""
+    n = jp_dev.numel() - 1
+    table, trans_w, iu_w, nh_w = jump_operands(graph, r_rows, dev)
+    jp_keep = jp_dev.clone()
+    jk, tk, sweep_ms = jp_dev, table, []
+    for k in range(JUMP_SWEEPS):
+        got_w, got_j = ct.jump_sweep_words(tk, jk, trans_w, iu_w, n)
+        torch.cuda.synchronize()
+        want_w, want_j = jump_twin(tk, jk, trans_w, iu_w, n)
+        equal = torch.equal(got_w, want_w) and torch.equal(got_j, want_j)
+        errs["jump"] = max(errs["jump"], float(not equal))
+        check(equal, f"jump differs from its plain version at 10M sweep "
+              f"{k + 1}: {int((got_w != want_w).sum())} hit words, "
+              f"{int((got_j != want_j).sum())} parents differ")
+        sweep_ms.append(cuda_ms(
+            lambda t=tk, j=jk: ct.jump_sweep_words(t, j, trans_w, iu_w, n),
+            20))
+        jk, tk = got_j, (tk | got_w) & nh_w
+    check(torch.equal(jp_dev, jp_keep),
+          "the jump kernel wrote into the caller's parents")
+    plain_ms = cuda_ms(lambda: jump_twin(table, jp_dev, trans_w, iu_w, n), 20)
+    # J read and the new J written once, the three word planes read and
+    # the hit words written once; the dependent gathers of J (hub parents)
+    # and of the planes are taken as L2 hits
+    work_bytes = 2 * 4 * (n + 1) + 4 * 4 * table.numel()
+    row = dict(name="jump", route="cuda", source=KERNEL_SOURCE,
+               replaces=JUMP_REPLACES, library_ms=None, ms=sweep_ms[0],
+               plain_ms=plain_ms, bound_ms=work_bytes / HBM_BYTES_S * 1e3,
+               bound_by="bytes")
+    say(f"[kernel] jump @10M: n={n} words={table.numel()} "
+        f"sweeps={JUMP_SWEEPS} equal=True caller_parents_unchanged=True "
+        f"bytes={work_bytes} ms={row['ms']:.4f} "
+        f"ms_by_sweep={[round(x, 4) for x in sweep_ms]} "
+        f"plain_ms={plain_ms:.4f} bound_ms={row['bound_ms']:.4f} "
+        f"share_of_bound={row['bound_ms'] / row['ms']:.3f}")
+    return row
+
+
 def push_sweep_inputs(graph, lay, dev, k):
     """The table and dirty mask that sweep ``k`` (1-based) of a push
     trace reads: the fixpoint of ops/cuda_trace.py's push mode, run
@@ -758,12 +829,18 @@ def phase_main(graph, lay, jp_dev, dev, n_garbage):
         args = [flags, recv] + ([jp_dev] if mode in ("jump", "auto") else [])
         args += ct.device_args(lay)
         torch.cuda.synchronize()
+        jumps = prop.launches["jump"]
         t0 = time.perf_counter()
         marks, stats = fn(*args)
         torch.cuda.synchronize()
         one_ms = (time.perf_counter() - t0) * 1e3
+        jumps = prop.launches["jump"] - jumps
         check(torch.equal(in_use & ~marks, expected),
               f"{mode}: garbage set differs from expected_garbage")
+        want_jumps = int(stats["n_sweeps"]) if mode in ("jump", "auto") else 0
+        check(jumps == want_jumps,
+              f"{mode}: the jump kernel launched {jumps} times in a trace "
+              f"of {stats['n_sweeps']} sweeps, not {want_jumps}")
         reps = []
         for _ in range(5):
             t0 = time.perf_counter()
@@ -776,7 +853,7 @@ def phase_main(graph, lay, jp_dev, dev, n_garbage):
                  stats["dirty_chunks"][:min(sweeps, ct.MAX_SWEEP_STATS)]]
         if mode == "push":
             push_dirty = dirty
-        say(f"[main] mode={mode} n_sweeps={sweeps} "
+        say(f"[main] mode={mode} n_sweeps={sweeps} jump_launches={jumps} "
             f"host_syncs={stats['host_syncs']} one_shot_ms={one_ms:.2f} "
             f"p50_ms={p50:.2f} reps_ms={[round(r, 2) for r in reps]} "
             f"garbage_actors_per_s={n_garbage / (p50 / 1e3):.4g} "
@@ -1108,7 +1185,7 @@ def phase_live(errs):
     """Phase 6: each of LIVE_RUNS through the port's actor runtime with
     the collector tracing on the card.  Returns the launches per form
     summed over the runs."""
-    total = {"propagate": 0, "propagate_gated": 0}
+    total = dict.fromkeys(prop.launches, 0)
     for label, workload, args, backend, mode, pipelined, oracle in LIVE_RUNS:
         config = {
             "uigc.crgc.shadow-graph": backend,
@@ -1119,6 +1196,14 @@ def phase_live(errs):
         }
         launches = live_run(label, workload, args, config, errs,
                             arrays.ArrayShadowGraph if oracle else None)
+        if mode in ("jump", "auto"):
+            check(launches["jump"] > 0,
+                  f"live {label}: the jump kernel never launched in the "
+                  f"{mode} collector: {launches}")
+        else:
+            check(launches["jump"] == 0,
+                  f"live {label}: the {mode} collector launched the jump "
+                  f"kernel: {launches}")
         for form, count in launches.items():
             total[form] += count
     return total
@@ -1368,7 +1453,7 @@ def mesh_main(graph, single_marks, single_p50, dev, errs):
                  + [st.put_stacked(mesh, bsrc), st.put_stacked(mesh, bdst)])
     jp = st.put_replicated(mesh, ct.jump_parents(psrc, pdst, n_pad))
     in_use = (graph["flags"] & F.FLAG_IN_USE) != 0
-    launches = {"propagate": 0, "propagate_gated": 0}
+    launches = dict.fromkeys(prop.launches, 0)
     for mode in ("push", "auto"):
         fn = st.make_sharded_cuda_trace(
             mesh, n_pad, ss, meta["n_blocks"], meta["r_rows"], ct.S_ROWS, m,
@@ -1473,7 +1558,7 @@ def mesh_churn(dev):
                          np.uint32(1) << (ids & 31).astype(np.uint32))
         return w.view(np.int32)
 
-    launches = {"propagate": 0, "propagate_gated": 0}
+    launches = dict.fromkeys(prop.launches, 0)
     for wk in range(11):
         del_ids, fresh_ids = [], []
         if wk:
@@ -1541,7 +1626,7 @@ def mesh_churn(dev):
 def mesh_live(errs):
     """8d: run_tree at 100k actors on the mesh backends, every card of
     the machine (uigc.crgc.mesh-devices 0).  Returns the launches."""
-    total = {"propagate": 0, "propagate_gated": 0}
+    total = dict.fromkeys(prop.launches, 0)
     for label, backend, pipelined, oracle in MESH_LIVE_RUNS:
         config = {
             "uigc.crgc.shadow-graph": backend,
@@ -1833,7 +1918,7 @@ def sanitized_runs(device):
          {"uigc.engine": "mac", "uigc.mac.cycle-detection": True,
           "uigc.mac.wakeup-interval": 10, "uigc.mac.device": device}),
     )
-    launches = {"propagate": 0, "propagate_gated": 0}
+    launches = dict.fromkeys(prop.launches, 0)
     for label, workload, args, config in runs:
         config = dict(config, **{"uigc.analysis.sanitizer": True})
         prop.reset_launches()
@@ -1888,19 +1973,21 @@ def phase_telemetry(device="cuda"):
 class NodeLaunches:
     """Kernel launches per node: ``Bookkeeper.on_message`` (a collector
     wake, or the undo-log fold a membership message triggers) names the
-    node whose collector runs on the calling thread, and the kernel
-    wrapper adds each launch to that node's count (under a lock: the
-    collectors of the three systems launch from their own threads)."""
+    node whose collector runs on the calling thread, and the wrappers of
+    both kernels (propagate and jump) add each launch to that node's
+    count (under a lock: the collectors of the three systems launch from
+    their own threads)."""
 
     def __init__(self):
         self.by_node = Counter()
         self._lock = threading.Lock()
         self._tls = threading.local()
         self._on_message = Bookkeeper.on_message
-        self._wrapped = prop.propagate_words_cuda
+        self._propagate = prop.propagate_words_cuda
+        self._jump = ct.jump_sweep_words_cuda
 
     def __enter__(self):
-        on_message, wrapped, tls = self._on_message, self._wrapped, self._tls
+        on_message, tls = self._on_message, self._tls
 
         def named(bookkeeper, msg):
             prev = getattr(tls, "node", None)
@@ -1910,19 +1997,24 @@ class NodeLaunches:
             finally:
                 tls.node = prev
 
-        def counted(*args, **kw):
-            out = wrapped(*args, **kw)
-            with self._lock:
-                self.by_node[getattr(tls, "node", None)] += 1
-            return out
+        def counting(wrapped):
+            def counted(*args, **kw):
+                out = wrapped(*args, **kw)
+                with self._lock:
+                    self.by_node[getattr(tls, "node", None)] += 1
+                return out
+            return counted
 
         Bookkeeper.on_message = named
-        prop.propagate_words_cuda = counted
+        prop.propagate_words_cuda = counting(self._propagate)
+        # ops/cuda_trace.py calls the jump launcher by its imported name
+        ct.jump_sweep_words_cuda = counting(self._jump)
         return self
 
     def __exit__(self, *exc):
         Bookkeeper.on_message = self._on_message
-        prop.propagate_words_cuda = self._wrapped
+        prop.propagate_words_cuda = self._propagate
+        ct.jump_sweep_words_cuda = self._jump
 
     def current(self):
         """The node whose collector runs on the calling thread, or None."""
@@ -2181,7 +2273,7 @@ def partitioned_run():
 
 def phase_cluster(errs):
     """Phase 10.  Returns the launches per form over its runs."""
-    total = {"propagate": 0, "propagate_gated": 0}
+    total = dict.fromkeys(prop.launches, 0)
     for label, backend, pipelined in CLUSTER_RUNS:
         for form, count in cluster_run(label, backend, pipelined,
                                        errs).items():
@@ -2344,7 +2436,7 @@ def proc_run(label, backend, pipelined, death, device, errs):
 def phase_procs(errs, device="cuda"):
     """Phase 11.  Returns the launches per form of A's and B's
     collectors over its runs."""
-    total = {"propagate": 0, "propagate_gated": 0}
+    total = dict.fromkeys(prop.launches, 0)
     for label, backend, pipelined, death in PROC_RUNS:
         for form, count in proc_run(label, backend, pipelined, death,
                                     device, errs).items():
@@ -2753,7 +2845,7 @@ def shard_run(label, backend, pipelined, fate, device, n_keys, errs):
 
 def phase_sharding(errs, device="cuda", n_keys=SHARD_KEYS):
     """Phase 12.  Returns the launches per form over its runs."""
-    total = {"propagate": 0, "propagate_gated": 0}
+    total = dict.fromkeys(prop.launches, 0)
     for label, backend, pipelined, fate in SHARD_RUNS:
         for form, count in shard_run(label, backend, pipelined, fate,
                                      device, n_keys, errs).items():
@@ -3376,7 +3468,7 @@ def phase_gateway(errs, device="cuda", n_keys=GATEWAY_KEYS):
     if soft != resource.RLIM_INFINITY and soft < want:
         resource.setrlimit(resource.RLIMIT_NOFILE, (
             want if hard == resource.RLIM_INFINITY else min(want, hard), hard))
-    total = {"propagate": 0, "propagate_gated": 0}
+    total = dict.fromkeys(prop.launches, 0)
     for label, backend, pipelined, n_data, fate in GATEWAY_RUNS:
         for form, count in gateway_run(label, backend, pipelined, n_data,
                                        fate, device, n_keys, errs).items():
@@ -3506,8 +3598,8 @@ def tools_profile(graph, prep, jump_parent, marks, kernels, device):
 class TraceLaunches:
     """The kernel launches of each collector trace of a one-system run:
     wraps ArrayShadowGraph.compute_marks (the ``device`` backend traces
-    through it once per traced wake) and logs the launch counters' delta
-    around each call."""
+    through it once per traced wake) and logs the propagate kernel's
+    launches (both forms; not the jump kernel's) around each call."""
 
     def __init__(self):
         self.deltas = []
@@ -3516,10 +3608,13 @@ class TraceLaunches:
     def __enter__(self):
         plain = self._plain
 
+        def propagate_launches():
+            return prop.launches["propagate"] + prop.launches["propagate_gated"]
+
         def logged(graph):
-            before = sum(prop.launches.values())
+            before = propagate_launches()
             out = plain(graph)
-            self.deltas.append(sum(prop.launches.values()) - before)
+            self.deltas.append(propagate_launches() - before)
             return out
 
         arrays.ArrayShadowGraph.compute_marks = logged
@@ -3815,7 +3910,7 @@ def main():
     card = phase_device()
     dev = torch.device("cuda", 0)
     phase_build()
-    errs = {"propagate": 0.0, "propagate_gated": 0.0}
+    errs = dict.fromkeys(prop.launches, 0.0)
     random_layout_checks(dev, errs)
 
     t0 = time.perf_counter()
@@ -3842,6 +3937,8 @@ def main():
         torch.from_numpy(graph["flags"]).to(dev), F.FLAG_HALTED)
     table = ct.pack_bools(active, N_MAIN, lay["r_rows"])
     kernels = main_layout_timing(lay, table, dev, errs)
+    kernels["jump"] = main_jump_timing(graph, jp_dev, lay["r_rows"], dev,
+                                       errs)
 
     prop.reset_launches()
     push_dirty, p50s = phase_main(graph, lay, jp_dev, dev, n_garbage)
@@ -3862,6 +3959,8 @@ def main():
     say(f"[churn] launches={churn_launches}")
     check(churn_launches["propagate_gated"] > 0,
           "the gated kernel never launched under churn")
+    check(churn_launches["jump"] > 0,
+          "the jump kernel never launched in the auto-mode churn wakes")
     elapsed("phase 5")
     torch.cuda.empty_cache()
 
@@ -3931,7 +4030,8 @@ def main():
              "bound_by", "library_ms")
     say(card)  # the numbers above ran on this card, at this power limit
     say(json.dumps({"kernels": [{k: kernels[f][k] for k in order}
-                                for f in ("propagate", "propagate_gated")]}))
+                                for f in ("propagate", "propagate_gated",
+                                          "jump")]}))
     say(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -204,6 +204,8 @@ def test_tracer_children_on_the_profilers_clock(graph):
     dirty = [s["args"]["dirty_groups"] for s in inner
              if s["name"] == "uigc.fixpoint.sweep"]
     assert all(isinstance(k, int) and k > 0 for k in dirty)
+    jumps = [s["args"] for s in inner if s["name"] == "uigc.fixpoint.jump"]
+    assert jumps == [{"form": "torch"}] * sweeps  # the plain twin on the CPU
 
     # The ring's clock (time.time) and the profile's share an epoch.
     base_s = prof.profiler.kineto_results.trace_start_ns() * 1e-9

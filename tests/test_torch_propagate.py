@@ -19,6 +19,8 @@ from uigc_tpu.ops import pallas_trace as ref
 from uigc_tpu_torch.ops import cuda_trace as ct
 from uigc_tpu_torch.ops import propagate as prop
 
+from test_torch_cuda_jump import parents_mix
+
 
 def t(a):
     return torch.from_numpy(np.ascontiguousarray(np.asarray(a)))
@@ -359,6 +361,68 @@ def test_jump_sweep_matches():
                                   jnp.asarray(trans), n, jnp)
     assert np.array_equal(hits.numpy(), np.asarray(w_hits))
     assert np.array_equal(j2.numpy(), np.asarray(w_j2))
+
+
+@pytest.mark.parametrize("n", [1, 31, 33, 3000, 8 * ref.LANE * 32])
+def test_jump_sweep_words_matches(n):
+    """The jump step's plain twin against the reference's jump_sweep,
+    pack_bools and the in-use mask, on every kind of parent."""
+    rng = np.random.default_rng(n)
+    r_rows = 8
+    jp = parents_mix(rng, n)
+    table, trans, iu = (rand_words(rng, (r_rows, ref.LANE)) for _ in range(3))
+    got_w, got_j = ct.jump_sweep_words(t(table), t(jp), t(trans), t(iu), n)
+    hits, want_j = ref.jump_sweep(jnp.asarray(table), jnp.asarray(jp),
+                                  jnp.asarray(trans), n, jnp)
+    want_w = np.asarray(ref.pack_bools(hits, n, r_rows, jnp)) & iu
+    assert got_w.dtype == torch.int32 and got_j.dtype == torch.int32
+    assert np.array_equal(got_w.numpy(), want_w)
+    assert np.array_equal(got_j.numpy(), np.asarray(want_j))
+    assert int(got_j[n]) == n
+    assert np.array_equal(jp, parents_mix(np.random.default_rng(n), n))
+
+
+def jump_operands():
+    n, r_rows = 3000, 8
+    rng = np.random.default_rng(1)
+    words = [t(rand_words(rng, (r_rows, ref.LANE))) for _ in range(3)]
+    return [*words[:1], t(parents_mix(rng, n)), *words[1:], n]
+
+
+@pytest.mark.parametrize("fault", [
+    "dtype_table", "dtype_jump", "shape_trans", "shape_iu", "short_jump",
+    "table_not_lanes", "n_past_table", "device", "strided_jump",
+    "strided_table"])
+def test_jump_sweep_words_refuses_bad_operands(fault):
+    table, jump_j, trans, iu, n = jump_operands()
+    if fault == "dtype_table":
+        table = table.long()
+    elif fault == "dtype_jump":
+        jump_j = jump_j.long()
+    elif fault == "shape_trans":
+        trans = trans[:4]
+    elif fault == "shape_iu":
+        iu = iu.reshape(-1)
+    elif fault == "short_jump":
+        jump_j = jump_j[:n]
+    elif fault == "table_not_lanes":
+        table = table.reshape(-1, ref.LANE // 2)
+    elif fault == "n_past_table":
+        n = table.numel() * 32 + 1
+        jump_j = torch.full((n + 1,), n, dtype=torch.int32)
+    elif fault == "device":
+        iu = torch.empty(iu.shape, dtype=torch.int32, device="meta")
+    elif fault == "strided_jump":
+        jump_j = torch.stack([jump_j, jump_j], dim=1)[:, 0]
+    elif fault == "strided_table":
+        table = torch.cat([table, table], dim=1)[:, ::2]
+    with pytest.raises(ValueError):
+        ct.jump_sweep_words(table, jump_j, trans, iu, n)
+
+
+def test_jump_sweep_words_cuda_refuses_cpu_tensors():
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        prop.jump_sweep_words_cuda(*jump_operands())
 
 
 @pytest.mark.parametrize("compact", [False, True])

@@ -205,8 +205,9 @@ def _build_wake_fn(
             hit_w = sweep(table, d, layout_args, gate=gate)
             new_mark_w = mark_w | (hit_w & iu_w)
             if use_jump:
-                jh, jump_j = pt.jump_sweep(table, jump_j, trans_w, n)
-                new_mark_w |= pack(jh) & iu_w
+                jump_w, jump_j = pt.jump_sweep_words(table, jump_j, trans_w,
+                                                     iu_w, n)
+                new_mark_w |= jump_w
             new_table = new_mark_w & nh_w
             if with_stats:
                 i = min(sweeps, pt.MAX_SWEEP_STATS - 1)

@@ -14,7 +14,10 @@ What it keeps, and how:
   TPU; a layout native to Hopper is later work.
 - **The sweep glue, as torch ops** (``bits_at``, ``jump_sweep``,
   ``saturated_tiles``, the dirty lists, the word pack/unpack and
-  ``build_sweep_contribs`` with its dense, compact and xla tiers).
+  ``build_sweep_contribs`` with its dense, compact and xla tiers), but
+  for the jump step on the card: :func:`jump_sweep_words` launches a
+  hand-written kernel there, and keeps ``jump_sweep`` and ``pack_bools``
+  as its plain twin.
 - **The fixpoint** (``_build_trace_fn_multi``) in all four modes (push,
   pull, jump, auto).  The reference's loop is one device program
   (``jax.lax.while_loop``); here the loop runs on the host and reads the
@@ -60,6 +63,8 @@ from .propagate import (  # the kernel ABI, named as the reference names it
     ROWS,
     SPAN_BITS,
     WORD_BITS,
+    check_jump_operands,
+    jump_sweep_words_cuda,
     pack_hits_words,
     propagate_words,
 )
@@ -254,6 +259,25 @@ def pack_bools(active, n, r_rows):
                     device=active.device)
     a[:n] = active
     return pack_hits_words(a.reshape(-1, LANE)).reshape(r_rows, LANE)
+
+
+def jump_sweep_words(table, jump_j, trans_w, iu_w, n):
+    """The jump step of a sweep as the fixpoint ORs it into the marks:
+    (hit_words, new_jump_j), with ``hit_words`` an int32 plane shaped
+    like ``table`` holding ``pack_bools(hits) & iu_w`` and (hits,
+    new_jump_j) what :func:`jump_sweep` returns (``JUMP_STEPS`` = 2
+    doublings, the kernel's fixed depth).  ``jump_j`` is only read.
+    CPU tensors take :func:`jump_sweep` and :func:`pack_bools`, its plain
+    twin; CUDA tensors take the kernel (``ops/propagate.py``
+    ``jump_sweep_words_cuda``), with no fallback."""
+    kind = table.device.type
+    if kind == "cuda":
+        return jump_sweep_words_cuda(table, jump_j, trans_w, iu_w, n)
+    if kind != "cpu":
+        raise ValueError(f"no jump kernel for device type {kind!r}")
+    check_jump_operands(table, jump_j, trans_w, iu_w, n)
+    hits, new_j = jump_sweep(table, jump_j, trans_w, n)
+    return pack_bools(hits, n, table.shape[0]) & iu_w, new_j
 
 
 def dirty_group_lists(table, table_prev, n_chunks, group_rows):
@@ -856,6 +880,7 @@ def _build_trace_fn_multi(
         else:
             jump_j, layout_args = None, rest
         dev = flags.device
+        jump_form = "cuda" if dev.type == "cuda" else "torch"
         with events.span("uigc.fixpoint.seed"):
             in_use = F.flag_set(flags, F.FLAG_IN_USE)
             halted = F.flag_set(flags, F.FLAG_HALTED)
@@ -903,9 +928,10 @@ def _build_trace_fn_multi(
                 hit_w = sweep(table, d, layout_args, gate=gate)
                 new_mark_w = mark_w | (hit_w & iu_w)
                 if use_jump:
-                    with events.span("uigc.fixpoint.jump"):
-                        jh, jump_j = jump_sweep(table, jump_j, trans_w, n)
-                        new_mark_w |= pack_bools(jh, n, r_rows) & iu_w
+                    with events.span("uigc.fixpoint.jump", form=jump_form):
+                        jump_w, jump_j = jump_sweep_words(table, jump_j,
+                                                          trans_w, iu_w, n)
+                        new_mark_w |= jump_w
                 new_table = new_mark_w & nh_w
                 if with_stats:
                     i = min(sweeps, MAX_SWEEP_STATS - 1)

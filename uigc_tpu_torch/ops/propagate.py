@@ -28,7 +28,12 @@ contract, built on it: thresholded, scattered by ``super_ids``, packed.
 CPU tensors, the kernel for CUDA tensors.  There is no fallback: a CUDA
 tensor whose kernel cannot be built or launched raises.
 
-The kernel is built at first use by ``nvcc`` into ``csrc/build/`` (a
+The same source holds the jump step's kernel (``jump_sweep_kernel``),
+launched by :func:`jump_sweep_words_cuda`, one launch a sweep of the
+jump and auto modes.  Its plain twin is ``ops/cuda_trace.py``
+``jump_sweep`` and ``pack_bools``.
+
+The kernels are built at first use by ``nvcc`` into ``csrc/build/`` (a
 shared library with a plain C interface, bound with ``ctypes``), named by
 a hash of its source so an edited source is never served a stale build.
 """
@@ -61,9 +66,10 @@ GATE_PUSH = 0  # walk the dirty groups inside the block's span
 GATE_FULL = 1  # walk the block's whole span
 GATE_SKIP = 2  # walk nothing
 
-#: launches of each kernel form since the last reset_launches(); the
-#: wrapper adds one where it launches, and nowhere else
-launches = {"propagate": 0, "propagate_gated": 0}
+#: launches of each kernel (form) since the last reset_launches(); the
+#: wrapper adds one where it launches, and nowhere else.  ``jump`` is the
+#: jump step's kernel, one launch a sweep of the jump and auto modes.
+launches = {"propagate": 0, "propagate_gated": 0, "jump": 0}
 #: guards ``launches``: several collectors (one per system of a
 #: multi-node fabric) launch from their own threads, and ``+= 1`` on a
 #: dict entry is a read, an add and a store
@@ -162,6 +168,12 @@ def _bind(path: Path) -> ctypes.CDLL:
         + [ctypes.c_int64] + [ctypes.c_int32] * 4 + [ctypes.c_void_p]
     )
     fn.restype = ctypes.c_int
+    jump = lib.uigc_jump_sweep_words
+    jump.argtypes = (
+        [ctypes.c_void_p] * 6 + [ctypes.c_int32, ctypes.c_int64,
+                                 ctypes.c_void_p]
+    )
+    jump.restype = ctypes.c_int
     return lib
 
 
@@ -383,3 +395,54 @@ def propagate_words(d, bmeta1, bmeta2, table, row_pos, emeta, out, *,
         return propagate_words_cuda(d, bmeta1, bmeta2, table, row_pos, emeta,
                                     out, **kw)
     raise ValueError(f"no propagate kernel for device type {kind!r}")
+
+
+# --------------------------------------------------------------------- #
+# The jump step's kernel
+# --------------------------------------------------------------------- #
+
+
+def check_jump_operands(table, jump_j, trans_w, iu_w, n):
+    """Checks of the jump step's contract (``csrc/propagate.cu``
+    ``jump_sweep_kernel``), host attribute reads only: int32, contiguous
+    and on one device; three word planes of one (r_rows, LANE) shape that
+    holds n nodes; n + 1 parents."""
+    dev = table.device
+    if table.dim() != 2 or table.shape[1] != LANE:
+        raise ValueError(f"table must be (r_rows, {LANE}), got {tuple(table.shape)}")
+    if not 0 <= n <= table.numel() * WORD_BITS or n >= (1 << 31) - 1:
+        raise ValueError(f"n {n} does not fit the {table.numel()}-word table "
+                         f"and int32 ids")
+    _check("table", table, dev)
+    for name, t in (("trans_w", trans_w), ("iu_w", iu_w)):
+        _check(name, t, dev)
+        if t.shape != table.shape:
+            raise ValueError(f"{name} is {tuple(t.shape)}, the table "
+                             f"{tuple(table.shape)}")
+    _check("jump_j", jump_j, dev, n + 1)
+    if jump_j.dim() != 1:
+        raise ValueError(f"jump_j must be flat, got {tuple(jump_j.shape)}")
+
+
+def jump_sweep_words_cuda(table, jump_j, trans_w, iu_w, n):
+    """The jump step's sm_90a kernel, launched on the current stream:
+    returns fresh (hit_words, new_jump_j), the words shaped like
+    ``table``.  ``jump_j`` is only read.  Raises when an operand is not
+    what the kernel takes, when the build fails, or when the launch is
+    refused."""
+    dev = table.device
+    if dev.type != "cuda":
+        raise ValueError(f"jump_sweep_words_cuda needs CUDA tensors, got {dev}")
+    check_jump_operands(table, jump_j, trans_w, iu_w, n)
+    hit_words = torch.empty_like(table)
+    new_j = torch.empty_like(jump_j)
+    fn = load_library().uigc_jump_sweep_words
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    with torch.cuda.device(dev):
+        err = fn(table.data_ptr(), jump_j.data_ptr(), trans_w.data_ptr(),
+                 iu_w.data_ptr(), hit_words.data_ptr(), new_j.data_ptr(), n,
+                 table.numel(), stream)
+    if err != 0:
+        raise RuntimeError(f"jump kernel launch failed: CUDA error {err}")
+    _count_launch("jump")
+    return hit_words, new_j
