@@ -35,6 +35,13 @@ closure), so its mark stays valid; closure members are re-derived from
 scratch against that stable boundary.  A cold start degenerates
 gracefully: with zero previous state the suspect set is empty and the
 repair fixpoint IS the full trace from seeds.
+
+Spans (``utils/events.py`` ``span``; host values only): ``uigc.wake``
+over one :meth:`DecrementalTracer.wake_device` (args ``closure_sweeps``,
+``repair_sweeps`` and ``waits`` at its end), ``uigc.wake.ids`` over each
+id-set scatter, ``uigc.wake.closure.sweep`` and ``uigc.wake.repair.sweep``
+over one sweep of either loop, and ``uigc.wake.wait`` over each
+changed-flag read, ``host_syncs`` of them.
 """
 
 from __future__ import annotations
@@ -66,15 +73,17 @@ def _build_wake_fn(
 ):
     """The wake: (flags, recv, del_words, fresh_words, prev state,
     [jump parents,] *layout args) -> (mark_w, seed_w, halted_w, iu_w,
-    table) with all word tables (r_rows, LANE) int32 tensors.
+    table, counts) with all word tables (r_rows, LANE) int32 tensors and
+    ``counts`` the host ints ``closure_sweeps``, ``n_sweeps`` (the
+    repair's) and ``host_syncs`` (every changed-flag read).
 
     ``mode`` applies to the REPAIR fixpoint only: on a cold start the
     repair IS the full derivation, which is where the O(diameter) sweep
     wall lives.  The closure phase stays a plain push fixpoint: it is
     bounded by the churn's region, and jump hits there would only
-    over-approximate the closure.  ``with_stats`` appends a per-wake
-    stats dict (repair sweep count, host syncs, the FULL-gated tiles of
-    the forced sweep, and the per-sweep frontier decomposition)."""
+    over-approximate the closure.  ``with_stats`` adds to ``counts``
+    the FULL-gated tiles of the forced sweep and the per-sweep frontier
+    decomposition (device tensors)."""
     F = trace_ops
     require(
         mode in pt.TRACE_MODES, "config.trace_mode",
@@ -143,13 +152,20 @@ def _build_wake_fn(
         zero_gate = torch.zeros(n_super, dtype=torch.int32, device=dev)
         closure_w = s_w
         d, changed = dirty_chunks(s_w, torch.zeros_like(s_w))
+        with events.span("uigc.wake.wait"):
+            grow = bool(changed)  # host sync
         host_syncs += 1
-        while bool(changed):  # host sync
-            hit_w = sweep(closure_w, d, layout_args, gate=zero_gate)
-            new_closure = closure_w | (hit_w & prev_mark_w)
-            d, changed = dirty_chunks(new_closure, closure_w)
-            closure_w = new_closure
-            host_syncs += 1
+        closure_sweeps = 0
+        while grow:
+            with events.span("uigc.wake.closure.sweep"):
+                hit_w = sweep(closure_w, d, layout_args, gate=zero_gate)
+                new_closure = closure_w | (hit_w & prev_mark_w)
+                d, changed = dirty_chunks(new_closure, closure_w)
+                closure_w = new_closure
+                closure_sweeps += 1
+                with events.span("uigc.wake.wait"):
+                    grow = bool(changed)  # host sync
+                host_syncs += 1
 
         # Per-supertile gate: closure members must re-derive; fresh
         # insert destinations must see their new pairs' contributions at
@@ -168,13 +184,15 @@ def _build_wake_fn(
         table = mark_w & nh_w
         d, _ = dirty_chunks(table, prev_table)
         trans_w = iu_w & nh_w  # jump-transparent intermediates
-        n_dirty = int(d[n_chunks])  # readback: the loop's changed flag
+        with events.span("uigc.wake.wait"):
+            n_dirty = int(d[n_chunks])  # readback: the loop's changed flag
         host_syncs += 1
         run = n_dirty > 0
         if not run:
             # Run at least one gated sweep whenever anything is suspect,
             # even if the table diff alone is empty.
-            run = bool(suspect_g.any())  # host sync
+            with events.span("uigc.wake.wait"):
+                run = bool(suspect_g.any())  # host sync
             host_syncs += 1
         use_gate = True
         sweeps = 0
@@ -184,51 +202,58 @@ def _build_wake_fn(
                                  device=dev)
                   for k in ("dirty_chunks", "tiles_skipped", "pull_on")}
         while run:
-            # Gate composition: the repair forcing (GATE_FULL on suspect
-            # tiles, first sweep only) under the pull skip (GATE_SKIP on
-            # saturated tiles — a saturated tile has nothing left to
-            # re-derive, contributions are not carried across sweeps).
-            base_gate = suspect_g if use_gate else zero_gate
-            pull_on = False
-            if use_pull:
-                sat = pt.saturated_tiles(mark_w, iu_w, n_super, sup_words)
-                pull_on = mode != pt.MODE_AUTO or n_dirty >= pull_cut
-                gate = (
-                    torch.where(sat > 0, torch.full_like(sat, pt.GATE_SKIP),
-                                base_gate)
-                    if pull_on else base_gate
-                )
-            else:
-                gate = base_gate
-            if use_gate:
-                full_tiles = (gate == pt.GATE_FULL).sum()
-            hit_w = sweep(table, d, layout_args, gate=gate)
-            new_mark_w = mark_w | (hit_w & iu_w)
-            if use_jump:
-                jump_w, jump_j = pt.jump_sweep_words(table, jump_j, trans_w,
-                                                     iu_w, n)
-                new_mark_w |= jump_w
-            new_table = new_mark_w & nh_w
-            if with_stats:
-                i = min(sweeps, pt.MAX_SWEEP_STATS - 1)
-                st["dirty_chunks"][i] = n_dirty
+            with events.span("uigc.wake.repair.sweep"):
+                # Gate composition: the repair forcing (GATE_FULL on
+                # suspect tiles, first sweep only) under the pull skip
+                # (GATE_SKIP on saturated tiles — a saturated tile has
+                # nothing left to re-derive, contributions are not
+                # carried across sweeps).
+                base_gate = suspect_g if use_gate else zero_gate
+                pull_on = False
                 if use_pull:
-                    st["tiles_skipped"][i] = sat.sum() if pull_on else 0
-                    st["pull_on"][i] = int(pull_on)
-            d, _ = dirty_chunks(new_table, table)
-            mark_w, table = new_mark_w, new_table
-            # The gated sweep fully re-derives suspect supertiles; the
-            # monotone dirty machinery is sufficient (and cheaper) after.
-            use_gate = False
-            sweeps += 1
-            n_dirty = int(d[n_chunks])  # readback: the changed flag, per sweep
-            host_syncs += 1
-            run = n_dirty > 0
-        out = (mark_w, seed_w, halted_w, iu_w, table)
+                    sat = pt.saturated_tiles(mark_w, iu_w, n_super,
+                                             sup_words)
+                    pull_on = mode != pt.MODE_AUTO or n_dirty >= pull_cut
+                    gate = (
+                        torch.where(sat > 0,
+                                    torch.full_like(sat, pt.GATE_SKIP),
+                                    base_gate)
+                        if pull_on else base_gate
+                    )
+                else:
+                    gate = base_gate
+                if use_gate:
+                    full_tiles = (gate == pt.GATE_FULL).sum()
+                hit_w = sweep(table, d, layout_args, gate=gate)
+                new_mark_w = mark_w | (hit_w & iu_w)
+                if use_jump:
+                    jump_w, jump_j = pt.jump_sweep_words(table, jump_j,
+                                                         trans_w, iu_w, n)
+                    new_mark_w |= jump_w
+                new_table = new_mark_w & nh_w
+                if with_stats:
+                    i = min(sweeps, pt.MAX_SWEEP_STATS - 1)
+                    st["dirty_chunks"][i] = n_dirty
+                    if use_pull:
+                        st["tiles_skipped"][i] = (sat.sum() if pull_on
+                                                  else 0)
+                        st["pull_on"][i] = int(pull_on)
+                d, _ = dirty_chunks(new_table, table)
+                mark_w, table = new_mark_w, new_table
+                # The gated sweep fully re-derives suspect supertiles;
+                # the monotone dirty machinery is sufficient (and
+                # cheaper) after.
+                use_gate = False
+                sweeps += 1
+                with events.span("uigc.wake.wait"):
+                    n_dirty = int(d[n_chunks])  # readback: the changed flag
+                host_syncs += 1
+                run = n_dirty > 0
+        counts = dict(closure_sweeps=closure_sweeps, n_sweeps=sweeps,
+                      host_syncs=host_syncs)
         if with_stats:
-            return out + (dict(st, n_sweeps=sweeps, host_syncs=host_syncs,
-                               full_tiles=full_tiles),)
-        return out
+            counts.update(st, full_tiles=full_tiles)
+        return mark_w, seed_w, halted_w, iu_w, table, counts
 
     return wake_fn
 
@@ -311,15 +336,15 @@ class DecrementalTracer:
         self.layout.remove(src, dst, kind)
 
     def apply_log(self, log: List[tuple]) -> None:
-        for ins, _src, dst, _kind in log:
-            # Over-approximation is sound: a removal that nets out adds a
-            # suspect whose repair is a no-op; an insert dst only forces
-            # one full re-derivation of its supertile.
-            if dst < self.n:
-                (self._pending_fresh_dst if ins else self._pending_del_dst).add(
-                    int(dst)
-                )
-        self.layout.apply_log(log)
+        with events.span("uigc.layout.fold"):
+            for ins, _src, dst, _kind in log:
+                # Over-approximation is sound: a removal that nets out
+                # adds a suspect whose repair is a no-op; an insert dst
+                # only forces one full re-derivation of its supertile.
+                if dst < self.n:
+                    (self._pending_fresh_dst if ins
+                     else self._pending_del_dst).add(int(dst))
+            self.layout._fold_log(log)
 
     # -- the wake ------------------------------------------------------ #
 
@@ -327,20 +352,29 @@ class DecrementalTracer:
         """Scatter an id set into a packed word table on the device.  The
         set is not drained here: wake_device clears it only after the
         wake ran, so a wake that raises keeps its suspects."""
-        words = np.zeros(r_rows * pt.LANE, dtype=np.uint32)
-        if id_set:
-            ids = np.fromiter(id_set, np.int64, len(id_set))
-            np.bitwise_or.at(
-                words, ids >> 5,
-                np.uint32(1) << (ids & 31).astype(np.uint32),
-            )
-        return torch.from_numpy(
-            words.view(np.int32).reshape(r_rows, pt.LANE)
-        ).to(self.device)
+        with events.span("uigc.wake.ids"):
+            words = np.zeros(r_rows * pt.LANE, dtype=np.uint32)
+            if id_set:
+                ids = np.fromiter(id_set, np.int64, len(id_set))
+                np.bitwise_or.at(
+                    words, ids >> 5,
+                    np.uint32(1) << (ids & 31).astype(np.uint32),
+                )
+            return torch.from_numpy(
+                words.view(np.int32).reshape(r_rows, pt.LANE)
+            ).to(self.device)
 
     def wake_device(self, flags_dev, recv_dev):
         """Run one wake; returns the packed mark words (device).  Use
         :meth:`marks` for the boolean vector."""
+        with events.span("uigc.wake") as span:
+            mark_w, counts = self._wake(flags_dev, recv_dev)
+            span.set(closure_sweeps=counts["closure_sweeps"],
+                     repair_sweeps=counts["n_sweeps"],
+                     waits=counts["host_syncs"])
+        return mark_w
+
+    def _wake(self, flags_dev, recv_dev):
         preps, args = self.layout.prepare_device_wake()
         first = preps[0]
         r_rows = first["r_rows"]
@@ -374,12 +408,13 @@ class DecrementalTracer:
             self._table,
             *args,
         )
+        *out, counts = out
         if self.collect_stats:
-            *out, self.last_stats = out
+            self.last_stats = counts
         self._mark_w, self._seed_w, self._halted_w, self._iu_w, self._table = out
         self._pending_del_dst.clear()
         self._pending_fresh_dst.clear()
-        return self._mark_w
+        return self._mark_w, counts
 
     def invalidate(self) -> None:
         """Drop the previous-fixpoint state: the next wake re-derives

@@ -33,6 +33,11 @@ ORing its hits into the sweep's one word plane
 (cuda_trace.build_sweep_contribs), which is equivalent to one layout
 holding the union of the pairs.
 
+Spans (``utils/events.py`` ``span``): ``uigc.layout.fold`` over
+:meth:`IncrementalCudaLayout.apply_log`, ``uigc.layout.freeze`` and
+``uigc.layout.consolidate`` over the two tier packs, and
+``uigc.layout.tiers`` over :meth:`IncrementalCudaLayout.prepare_device_wake`.
+
 Pairs are keyed (src, dst, kind) where kind distinguishes refob edges
 from supervisor pointers — the same (src, dst) node pair can legally
 carry both (reference: ShadowGraph.java:224-268 treats them as separate
@@ -49,6 +54,7 @@ import numpy as np
 import torch
 
 from . import cuda_trace as pt
+from ..utils import events
 from ..utils.platform import resolve_device
 from ..utils.validation import require
 from .slotmap import PackedSlotMap, fold_log, pack_key, pack_keys, unpack_keys
@@ -198,64 +204,66 @@ class IncrementalCudaLayout:
 
     def _freeze_pending(self) -> None:
         """Pack the live tier into a compact frozen layout."""
-        t0 = perf_counter()
-        keys = list(self.pending)
-        m = len(keys)
-        psrc, pdst = unpack_keys(np.fromiter(keys, np.int64, m))
-        prep = pt.prepare_pairs(
-            psrc,
-            pdst,
-            self.n,
-            s_rows=self.s_rows,
-            pad_blocks_pow2=True,
-            want_slots=True,
-            compact_supers=True,
-            sub=self.sub,
-            group=self.group,
-        )
-        slot_ri = prep.pop("slot_ri")
-        slot_col = prep.pop("slot_col")
-        fidx = len(self.frozen)
-        self.frozen.append(prep)
-        for key, ri, co in zip(keys, slot_ri, slot_col):
-            self.frozen_slot[key] = (fidx, int(ri), int(co))
-        self.pending.clear()
-        self.stats["freezes"] += 1
-        self.stats["pack_s"] += perf_counter() - t0
+        with events.span("uigc.layout.freeze"):
+            t0 = perf_counter()
+            keys = list(self.pending)
+            m = len(keys)
+            psrc, pdst = unpack_keys(np.fromiter(keys, np.int64, m))
+            prep = pt.prepare_pairs(
+                psrc,
+                pdst,
+                self.n,
+                s_rows=self.s_rows,
+                pad_blocks_pow2=True,
+                want_slots=True,
+                compact_supers=True,
+                sub=self.sub,
+                group=self.group,
+            )
+            slot_ri = prep.pop("slot_ri")
+            slot_col = prep.pop("slot_col")
+            fidx = len(self.frozen)
+            self.frozen.append(prep)
+            for key, ri, co in zip(keys, slot_ri, slot_col):
+                self.frozen_slot[key] = (fidx, int(ri), int(co))
+            self.pending.clear()
+            self.stats["freezes"] += 1
+            self.stats["pack_s"] += perf_counter() - t0
 
     def _consolidate_frozen(self) -> None:
         """Merge the frozen chain into one compact layout."""
-        t0 = perf_counter()
-        keys = list(self.frozen_slot)
-        m = len(keys)
-        if m == 0:
-            self.frozen = []
+        with events.span("uigc.layout.consolidate"):
+            t0 = perf_counter()
+            keys = list(self.frozen_slot)
+            m = len(keys)
+            if m == 0:
+                self.frozen = []
+                self.masked_frozen = 0
+                self.stats["consolidations"] += 1
+                return
+            psrc, pdst = unpack_keys(np.fromiter(keys, np.int64, m))
+            prep = pt.prepare_pairs(
+                psrc,
+                pdst,
+                self.n,
+                s_rows=self.s_rows,
+                pad_blocks_pow2=True,
+                want_slots=True,
+                compact_supers=True,
+                sub=self.sub,
+                group=self.group,
+            )
+            slot_ri = prep.pop("slot_ri")
+            slot_col = prep.pop("slot_col")
+            self.frozen = [prep]
+            self.frozen_slot = {
+                key: (0, int(ri), int(co))
+                for key, ri, co in zip(keys, slot_ri, slot_col)
+            }
+            # consolidation dropped every masked frozen slot
             self.masked_frozen = 0
             self.stats["consolidations"] += 1
-            return
-        psrc, pdst = unpack_keys(np.fromiter(keys, np.int64, m))
-        prep = pt.prepare_pairs(
-            psrc,
-            pdst,
-            self.n,
-            s_rows=self.s_rows,
-            pad_blocks_pow2=True,
-            want_slots=True,
-            compact_supers=True,
-            sub=self.sub,
-            group=self.group,
-        )
-        slot_ri = prep.pop("slot_ri")
-        slot_col = prep.pop("slot_col")
-        self.frozen = [prep]
-        self.frozen_slot = {
-            key: (0, int(ri), int(co))
-            for key, ri, co in zip(keys, slot_ri, slot_col)
-        }
-        # consolidation dropped every masked frozen slot
-        self.masked_frozen = 0
-        self.stats["consolidations"] += 1
-        self.stats["pack_s"] += perf_counter() - t0
+            self.stats["pack_s"] += perf_counter() - t0
 
     # ----------------------------------------------------------------- #
     # Mutation (O(1) per changed pair)
@@ -369,6 +377,13 @@ class IncrementalCudaLayout:
         base-slot lookups are one vectorized binary search for the whole
         batch instead of a scalar search per pair (slotmap.fold_log
         documents the net-effect argument)."""
+        with events.span("uigc.layout.fold"):
+            self._fold_log(log)
+
+    def _fold_log(self, log) -> None:
+        """:meth:`apply_log` without its span, for a caller that opens
+        the fold's span around work of its own too (the decremental
+        tracer's suspect sets)."""
         if self.use_jump:
             # Batched jump-parent maintenance (pt.fold_jump_log):
             # conservative about insert-and-remove-in-one-batch pairs,
@@ -535,20 +550,21 @@ class IncrementalCudaLayout:
         decremental tracer (ops/cuda_decremental.py).  Returns
         (preps, args) with the jump-parent mirror leading ``args`` for
         jump/auto-mode layouts."""
-        preps = self.prepare_wake()
-        args = []
-        if self.use_jump:
-            args.append(self.jump_device())
-        for p in preps:
-            args.extend(self._device_args(p))
-        live_tokens = {
-            p["_mirror_token"] for p in preps if "_mirror_token" in p
-        }
-        for pid in list(self._dev_mirror):
-            if pid not in live_tokens:
-                del self._dev_mirror[pid]
-                self._dev_writes.pop(pid, None)
-        return preps, args
+        with events.span("uigc.layout.tiers"):
+            preps = self.prepare_wake()
+            args = []
+            if self.use_jump:
+                args.append(self.jump_device())
+            for p in preps:
+                args.extend(self._device_args(p))
+            live_tokens = {
+                p["_mirror_token"] for p in preps if "_mirror_token" in p
+            }
+            for pid in list(self._dev_mirror):
+                if pid not in live_tokens:
+                    del self._dev_mirror[pid]
+                    self._dev_writes.pop(pid, None)
+            return preps, args
 
     def trace_device(self, flags_dev, recv_dev, with_stats: bool = False):
         """Like :meth:`trace`, but every packed layout's operands stay
