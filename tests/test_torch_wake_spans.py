@@ -190,6 +190,34 @@ def test_wake_span_args_in_a_tracer():
                 assert by_id[s["parent_id"]]["name"] == "uigc.wake", s["name"]
 
 
+def test_fold_span_carries_the_fold_counts():
+    """The fold's span ends with the counts ``layout.stats`` gained: the
+    log's distinct keys, by the home each resolved in."""
+    ch = Churn(seed=16)
+    tr = ch.tracer(freeze_threshold=64, max_frozen=1)
+    tr.marks(*ch.inputs("cpu"))
+    stats = tr.layout.stats
+    homes = ("fold_pending", "fold_frozen", "fold_base", "fold_missing")
+    tracer = Tracer("uigc://n1", enabled=True)
+    seen = Counter()
+    for _ in range(6):
+        log = ch.next_log()
+        before = {k: stats[k] for k in ("fold_keys",) + homes}
+        tracer.clear()
+        with tracer.span("gc_wave"):
+            tr.apply_log(log)
+        (fold,) = [s for s in tracer.spans() if s["name"] == "uigc.layout.fold"]
+        assert fold["args"] == {k: stats[k] - v for k, v in before.items()}
+        assert fold["args"]["fold_keys"] == len({e[1:] for e in log})
+        assert sum(fold["args"][k] for k in homes) == fold["args"]["fold_keys"]
+        seen.update(fold["args"])
+        marks = tr.unpack_marks(tr.wake_device(*ch.inputs("cpu")))
+        assert np.array_equal(marks, ch.oracle())
+    # releases resolve in the base, creations nowhere (the other homes'
+    # counts: tests/test_torch_layout_fold.py)
+    assert seen["fold_base"] > 0 and seen["fold_missing"] > 0
+
+
 def test_freeze_and_consolidate_spans_open_with_their_tiers():
     ch = Churn(seed=13)
     tr = ch.tracer(freeze_threshold=64, max_frozen=1)

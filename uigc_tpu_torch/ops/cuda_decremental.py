@@ -47,7 +47,7 @@ changed-flag read, ``host_syncs`` of them.
 from __future__ import annotations
 
 import time
-from typing import Dict, List, Optional, Set
+from typing import Dict, List, Optional
 
 import numpy as np
 import torch
@@ -57,6 +57,7 @@ from . import trace as trace_ops
 from ..utils import events
 from ..utils.validation import require
 from .cuda_incremental import IncrementalCudaLayout
+from .slotmap import log_columns
 
 _fn_cache: Dict[tuple, object] = {}
 
@@ -313,8 +314,10 @@ class DecrementalTracer:
         self._halted_w = None
         self._iu_w = None
         self._table = None
-        self._pending_del_dst: Set[int] = set()
-        self._pending_fresh_dst: Set[int] = set()
+        #: suspect destinations since the last wake, as id arrays: of
+        #: released pairs and of created ones
+        self._pending_del_dst: List[np.ndarray] = []
+        self._pending_fresh_dst: List[np.ndarray] = []
 
     # -- building / mutation (layout pass-throughs that watch removals) --
 
@@ -326,36 +329,38 @@ class DecrementalTracer:
         self.invalidate()
 
     def insert(self, src: int, dst: int, kind: int) -> None:
-        if dst < self.n:
-            self._pending_fresh_dst.add(int(dst))
-        self.layout.insert(src, dst, kind)
+        self._fold(log_columns([(True, src, dst, kind)]))
 
     def remove(self, src: int, dst: int, kind: int) -> None:
-        if dst < self.n:
-            self._pending_del_dst.add(int(dst))
-        self.layout.remove(src, dst, kind)
+        self._fold(log_columns([(False, src, dst, kind)]))
 
     def apply_log(self, log: List[tuple]) -> None:
-        with events.span("uigc.layout.fold"):
-            for ins, _src, dst, _kind in log:
-                # Over-approximation is sound: a removal that nets out
-                # adds a suspect whose repair is a no-op; an insert dst
-                # only forces one full re-derivation of its supertile.
-                if dst < self.n:
-                    (self._pending_fresh_dst if ins
-                     else self._pending_del_dst).add(int(dst))
-            self.layout._fold_log(log)
+        with events.span("uigc.layout.fold") as span:
+            span.set(**self._fold(log_columns(log)))
+
+    def _fold(self, cols: np.ndarray) -> Dict[str, int]:
+        # Over-approximation is sound: a removal that nets out adds a
+        # suspect whose repair is a no-op; an insert dst only forces one
+        # full re-derivation of its supertile.
+        ins = cols[0] != 0
+        dst = cols[2]
+        ok = (dst >= 0) & (dst < self.n)
+        self._pending_fresh_dst.append(dst[ok & ins])
+        self._pending_del_dst.append(dst[ok & ~ins])
+        return self.layout._fold(cols)
 
     # -- the wake ------------------------------------------------------ #
 
-    def _id_words(self, id_set: Set[int], r_rows: int) -> torch.Tensor:
-        """Scatter an id set into a packed word table on the device.  The
-        set is not drained here: wake_device clears it only after the
-        wake ran, so a wake that raises keeps its suspects."""
+    def _id_words(self, id_arrays: List[np.ndarray],
+                  r_rows: int) -> torch.Tensor:
+        """Scatter id arrays (repeats allowed) into a packed word table on
+        the device.  The arrays are not drained here: wake_device clears
+        them only after the wake ran, so a wake that raises keeps its
+        suspects."""
         with events.span("uigc.wake.ids"):
             words = np.zeros(r_rows * pt.LANE, dtype=np.uint32)
-            if id_set:
-                ids = np.fromiter(id_set, np.int64, len(id_set))
+            if id_arrays:
+                ids = np.concatenate(id_arrays)
                 np.bitwise_or.at(
                     words, ids >> 5,
                     np.uint32(1) << (ids & 31).astype(np.uint32),

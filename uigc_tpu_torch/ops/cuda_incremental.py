@@ -19,14 +19,24 @@ per-wake path with three tiers:
   layout, spans and block count never change.
 - **Frozen deltas.**  When the live tier overflows, its pairs are packed
   into a *compact* layout (only the supertiles they touch) and appended
-  to a chain.  Frozen pairs are slot-mapped, so later deletions mask
-  them the same way.  When the chain exceeds ``max_frozen`` it is
-  consolidated into one compact layout — O(d log d) in the total delta.
-- **Live tier.**  The newest insertions sit in an ordered dict and ride
-  along as raw pair arrays propagated by a torch scatter-max
+  to a chain.  Frozen pairs are slot-mapped (:class:`FrozenSlots`: each
+  tier's keys sorted, its slots and live flags beside them), so later
+  deletions mask them the same way.  When the chain exceeds
+  ``max_frozen`` it is consolidated into one compact layout — O(d log d)
+  in the total delta.
+- **Live tier.**  The newest insertions sit in a sorted key array and
+  ride along as raw pair arrays propagated by a torch scatter-max
   (cuda_trace.xla_tier): zero pack cost, O(capacity) device work per
   fixpoint iteration — cheap while the tier is small, which freezing
   guarantees.
+
+The pair -> slot bookkeeping is array work a batch at a time: a log is
+converted once (slotmap.log_columns), folded to its net effect per key
+(slotmap.net_log), resolved against the live tier, the frozen tiers and
+the base in that order by batch lookups, and applied by fancy indexing;
+a tier pack fills its slot map from the packer's slot arrays in one
+step.  ``stats`` counts where each fold's keys resolved (``fold_keys``,
+``fold_pending``, ``fold_frozen``, ``fold_base``, ``fold_missing``).
 
 The trace launches the propagate kernel once per packed tier, each
 ORing its hits into the sweep's one word plane
@@ -34,7 +44,8 @@ ORing its hits into the sweep's one word plane
 holding the union of the pairs.
 
 Spans (``utils/events.py`` ``span``): ``uigc.layout.fold`` over
-:meth:`IncrementalCudaLayout.apply_log`, ``uigc.layout.freeze`` and
+:meth:`IncrementalCudaLayout.apply_log`, with the fold's five counts as
+args at its end, ``uigc.layout.freeze`` and
 ``uigc.layout.consolidate`` over the two tier packs, and
 ``uigc.layout.tiers`` over :meth:`IncrementalCudaLayout.prepare_device_wake`.
 
@@ -57,13 +68,83 @@ from . import cuda_trace as pt
 from ..utils import events
 from ..utils.platform import resolve_device
 from ..utils.validation import require
-from .slotmap import PackedSlotMap, fold_log, pack_key, pack_keys, unpack_keys
+from .slotmap import (
+    PackedSlotMap, log_columns, net_log, pack_keys, unpack_keys,
+)
 
 #: pair kinds
 EDGE = 0
 SUP = 1
 
 Key = Tuple[int, int, int]
+
+#: where a fold resolves a key (the order ``_fold`` looks in)
+_MISSING, _PENDING, _FROZEN, _BASE = range(4)
+_EMPTY = np.zeros(0, dtype=np.int64)
+
+
+def _in_sorted(sorted_keys: np.ndarray, karr: np.ndarray) -> np.ndarray:
+    """Which of ``karr`` are in the sorted array ``sorted_keys``, and
+    their positions there (valid where found)."""
+    pos = np.searchsorted(sorted_keys, karr)
+    if sorted_keys.size == 0:
+        return np.zeros(karr.size, dtype=bool), pos
+    pos = np.minimum(pos, sorted_keys.size - 1)
+    return sorted_keys[pos] == karr, pos
+
+
+class FrozenSlots:
+    """Packed key -> (tier, row, col) over the frozen tiers, in arrays:
+    per tier its keys sorted, their slots (``row << 8 | col``) and live
+    flags aligned.  A tier is added whole from the packer's slot arrays;
+    a removal clears live flags.  A key is live in at most one tier (the
+    layout inserts only keys live nowhere)."""
+
+    def __init__(self):
+        self.keys: List[np.ndarray] = []
+        self.slots: List[np.ndarray] = []
+        self.live: List[np.ndarray] = []
+        self.size = 0
+
+    def __len__(self) -> int:
+        return self.size
+
+    def add_tier(self, keys: np.ndarray, slots: np.ndarray) -> None:
+        """A new tier of sorted unique ``keys`` at ``slots``."""
+        self.keys.append(keys)
+        self.slots.append(slots)
+        self.live.append(np.ones(keys.size, dtype=bool))
+        self.size += keys.size
+
+    def find(self, karr: np.ndarray):
+        """(tier, position in the tier) of each live key of ``karr``;
+        tier -1 where none holds it."""
+        tier = np.full(karr.size, -1, dtype=np.int64)
+        pos = np.zeros(karr.size, dtype=np.int64)
+        for t, (keys, live) in enumerate(zip(self.keys, self.live)):
+            if keys.size == 0:
+                continue
+            hit, p = _in_sorted(keys, karr)
+            hit &= live[p]
+            tier[hit] = t
+            pos[hit] = p[hit]
+        return tier, pos
+
+    def kill(self, t: int, pos: np.ndarray) -> np.ndarray:
+        """Drop tier ``t``'s keys at ``pos``; returns their slots."""
+        self.live[t][pos] = False
+        self.size -= pos.size
+        return self.slots[t][pos]
+
+    def items(self):
+        """(keys, tier, row, col) of every live key."""
+        parts = [(k[v], np.full(int(v.sum()), t, np.int64), s[v])
+                 for t, (k, s, v) in enumerate(
+                     zip(self.keys, self.slots, self.live))]
+        if not parts:
+            return _EMPTY, _EMPTY, _EMPTY, _EMPTY
+        keys, tier, slots = (np.concatenate(x) for x in zip(*parts))
+        return keys, tier, slots >> 8, slots & 0xFF
 
 
 class IncrementalCudaLayout:
@@ -113,10 +194,10 @@ class IncrementalCudaLayout:
         self.base_slot = PackedSlotMap()
         #: frozen compact delta layouts
         self.frozen: List[Dict[str, np.ndarray]] = []
-        #: packed key -> (frozen index, row, col); churn-bounded, plain dict
-        self.frozen_slot: Dict[int, Tuple[int, int, int]] = {}
-        #: newest insertions, not yet packed (ordered set of packed keys)
-        self.pending: Dict[int, None] = {}
+        #: packed key -> (frozen index, row, col); churn-bounded
+        self.frozen_slots = FrozenSlots()
+        #: newest insertions, not yet packed (sorted packed keys)
+        self.pending = _EMPTY
         #: masked (deleted-in-place) slots, tracked per home so frozen
         #: masks can be forgiven when consolidation rebuilds the chain
         self.masked_base = 0
@@ -126,13 +207,15 @@ class IncrementalCudaLayout:
         #: modes.  Invariant: jump_parent[d] is always a CURRENT live
         #: pair's source (or the sentinel n) — a stale pointer would let
         #: the jump sweep propagate marks across a deleted edge.
-        #: Maintained O(1) per mutation: inserts fold in by minimum,
-        #: removing the pair a pointer was built from invalidates it
-        #: (best-effort: the next insert or rebuild re-derives).
+        #: Maintained per batch (cuda_trace.fold_jump_cols): inserts fold
+        #: in by minimum, removing the pair a pointer was built from
+        #: invalidates it (best-effort: the next insert or rebuild
+        #: re-derives).
         self.jump_parent = np.full(n + 1, n, dtype=np.int32)
-        #: queued jump-parent device writes (dst -> final host value;
-        #: last-wins dedup keeps the device scatter order-independent)
-        self._jump_writes: Dict[int, int] = {}
+        #: queued jump-parent device writes: arrays of changed dsts, the
+        #: values read from the host array when the mirror syncs (so the
+        #: device scatter is order-independent)
+        self._jump_writes: List[np.ndarray] = []
         self._jump_dev = None
         self.stats = {
             "rebuilds": 0,
@@ -140,15 +223,22 @@ class IncrementalCudaLayout:
             "consolidations": 0,
             "pack_s": 0.0,
             "anomalies": 0,
+            # where the folds' distinct keys resolved
+            "fold_keys": 0,
+            "fold_pending": 0,
+            "fold_frozen": 0,
+            "fold_base": 0,
+            "fold_missing": 0,
         }
         #: device-resident mirrors (trace_device): mirror token -> dict of
-        #: device tensors; plus per-prep masked-slot write queues so the
-        #: mirror syncs in O(churn) instead of re-uploading the layout.
+        #: device tensors; plus per-prep masked-slot write queues (arrays
+        #: of packed row << 8 | col) so the mirror syncs in O(churn)
+        #: instead of re-uploading the layout.
         #: Tokens are monotonically assigned and stamped into the prep
         #: dict — keying by id(prep) would serve a stale mirror when the
         #: allocator recycles a freed dict's address.
         self._dev_mirror: Dict[int, dict] = {}
-        self._dev_writes: Dict[int, List[int]] = {}
+        self._dev_writes: Dict[int, List[np.ndarray]] = {}
         self._mirror_next = 0
 
     # ----------------------------------------------------------------- #
@@ -195,38 +285,38 @@ class IncrementalCudaLayout:
             pack_keys(psrc, pdst, kinds), (slot_ri << 8) | slot_col
         )
         self.frozen = []
-        self.frozen_slot = {}
-        self.pending.clear()
+        self.frozen_slots = FrozenSlots()
+        self.pending = _EMPTY
         self.masked_base = 0
         self.masked_frozen = 0
         self.stats["rebuilds"] += 1
         self.stats["pack_s"] += perf_counter() - t0
 
+    def _pack_tier(self, keys: np.ndarray) -> None:
+        """Pack sorted ``keys`` into a compact frozen layout, appended to
+        the chain with its slot map."""
+        psrc, pdst = unpack_keys(keys)
+        prep = pt.prepare_pairs(
+            psrc,
+            pdst,
+            self.n,
+            s_rows=self.s_rows,
+            pad_blocks_pow2=True,
+            want_slots=True,
+            compact_supers=True,
+            sub=self.sub,
+            group=self.group,
+        )
+        slots = (prep.pop("slot_ri") << 8) | prep.pop("slot_col")
+        self.frozen.append(prep)
+        self.frozen_slots.add_tier(keys, slots)
+
     def _freeze_pending(self) -> None:
         """Pack the live tier into a compact frozen layout."""
         with events.span("uigc.layout.freeze"):
             t0 = perf_counter()
-            keys = list(self.pending)
-            m = len(keys)
-            psrc, pdst = unpack_keys(np.fromiter(keys, np.int64, m))
-            prep = pt.prepare_pairs(
-                psrc,
-                pdst,
-                self.n,
-                s_rows=self.s_rows,
-                pad_blocks_pow2=True,
-                want_slots=True,
-                compact_supers=True,
-                sub=self.sub,
-                group=self.group,
-            )
-            slot_ri = prep.pop("slot_ri")
-            slot_col = prep.pop("slot_col")
-            fidx = len(self.frozen)
-            self.frozen.append(prep)
-            for key, ri, co in zip(keys, slot_ri, slot_col):
-                self.frozen_slot[key] = (fidx, int(ri), int(co))
-            self.pending.clear()
+            self._pack_tier(self.pending)
+            self.pending = _EMPTY
             self.stats["freezes"] += 1
             self.stats["pack_s"] += perf_counter() - t0
 
@@ -234,218 +324,126 @@ class IncrementalCudaLayout:
         """Merge the frozen chain into one compact layout."""
         with events.span("uigc.layout.consolidate"):
             t0 = perf_counter()
-            keys = list(self.frozen_slot)
-            m = len(keys)
-            if m == 0:
-                self.frozen = []
-                self.masked_frozen = 0
-                self.stats["consolidations"] += 1
-                return
-            psrc, pdst = unpack_keys(np.fromiter(keys, np.int64, m))
-            prep = pt.prepare_pairs(
-                psrc,
-                pdst,
-                self.n,
-                s_rows=self.s_rows,
-                pad_blocks_pow2=True,
-                want_slots=True,
-                compact_supers=True,
-                sub=self.sub,
-                group=self.group,
-            )
-            slot_ri = prep.pop("slot_ri")
-            slot_col = prep.pop("slot_col")
-            self.frozen = [prep]
-            self.frozen_slot = {
-                key: (0, int(ri), int(co))
-                for key, ri, co in zip(keys, slot_ri, slot_col)
-            }
+            # each tier's keys are sorted: a merge of sorted runs
+            keys = np.sort(self.frozen_slots.items()[0], kind="stable")
+            self.frozen = []
+            self.frozen_slots = FrozenSlots()
             # consolidation dropped every masked frozen slot
             self.masked_frozen = 0
             self.stats["consolidations"] += 1
-            self.stats["pack_s"] += perf_counter() - t0
+            if keys.size:
+                self._pack_tier(keys)
+                self.stats["pack_s"] += perf_counter() - t0
 
     # ----------------------------------------------------------------- #
-    # Mutation (O(1) per changed pair)
+    # Mutation (array work per batch)
     # ----------------------------------------------------------------- #
-
-    def _jump_insert(self, src: int, dst: int) -> None:
-        """Fold a new live pair into the jump-parent array (minimum
-        wins, see jump_parents); O(1), queued for the device mirror."""
-        if not self.use_jump or dst >= self.n or src >= self.n:
-            return
-        if src < self.jump_parent[dst]:
-            self.jump_parent[dst] = src
-            if self._jump_dev is not None:
-                self._jump_writes[dst] = src
-
-    def _jump_remove(self, src: int, dst: int) -> None:
-        """Invalidate the jump parent if it was built from this pair.
-        Conservative: another live pair with the same (src, dst) node
-        ids (the other kind) may remain, but a spurious invalidation
-        only costs acceleration, never soundness."""
-        if not self.use_jump or dst >= self.n:
-            return
-        if self.jump_parent[dst] == src:
-            self.jump_parent[dst] = self.n
-            if self._jump_dev is not None:
-                self._jump_writes[dst] = self.n
 
     def insert(self, src: int, dst: int, kind: int) -> None:
-        key = pack_key(src, dst, kind)
-        self._jump_insert(src, dst)
-        if key in self.pending or key in self.frozen_slot or key in self.base_slot:
-            # The graph layer only reports dead->live transitions, so a
-            # duplicate means caller-side accounting drift; the pair is
-            # already live here, which keeps the trace correct.
-            self.stats["anomalies"] += 1
-            return
-        self.pending[key] = None
-
-    def _queue_dev_write(self, prep, ri, col) -> None:
-        """Record a masked slot for the device mirror (packed ri<<8|col)."""
-        tok = prep.get("_mirror_token")
-        if tok is None:
-            return
-        writes = self._dev_writes.get(tok)
-        if writes is not None:
-            writes.append((int(ri) << 8) | int(col))
+        self._fold(log_columns([(True, src, dst, kind)]))
 
     def remove(self, src: int, dst: int, kind: int) -> None:
-        key = pack_key(src, dst, kind)
-        self._jump_remove(src, dst)
-        if key in self.pending:
-            del self.pending[key]
-            return
-        slot = self.frozen_slot.pop(key, None)
-        if slot is not None:
-            fidx, ri, col = slot
-            prep = self.frozen[fidx]
-            prep["row_pos"][ri, col] = pt._PAD_ROW
-            prep["emeta"][ri, col] = 0
-            self._queue_dev_write(prep, ri, col)
-            self.masked_frozen += 1
-            return
-        packed = self.base_slot.pop(key)
-        if packed is None:
-            self.stats["anomalies"] += 1
-            return
-        ri, col = packed >> 8, packed & 0xFF
-        self.base["row_pos"][ri, col] = pt._PAD_ROW
-        self.base["emeta"][ri, col] = 0
-        self._queue_dev_write(self.base, ri, col)
-        self.masked_base += 1
+        self._fold(log_columns([(False, src, dst, kind)]))
 
-    def _mask_base_slots(self, vals: np.ndarray) -> int:
-        """Mask base slots from packed (row << 8 | col) values (-1 =
-        absent); returns how many were found."""
-        found = vals >= 0
-        ri = vals[found] >> 8
-        col = vals[found] & 0xFF
-        self.base["row_pos"][ri, col] = pt._PAD_ROW
-        self.base["emeta"][ri, col] = 0
-        tok = self.base.get("_mirror_token")
+    def _mask(self, prep, slots: np.ndarray) -> None:
+        """Mask ``prep``'s slots (packed row << 8 | col) in place and
+        queue them for its device mirror."""
+        ri, col = slots >> 8, slots & 0xFF
+        prep["row_pos"][ri, col] = pt._PAD_ROW
+        prep["emeta"][ri, col] = 0
+        tok = prep.get("_mirror_token")
         writes = self._dev_writes.get(tok) if tok is not None else None
         if writes is not None:
-            writes.extend(vals[found].tolist())
-        n = int(found.sum())
-        self.masked_base += n
-        return n
-
-    def _remove_key(self, k: int, base_rem: List[int]) -> bool:
-        """Remove ``k`` from pending/frozen, or defer it to the batched
-        base lookup; returns False only when deferred."""
-        if k in self.pending:
-            del self.pending[k]
-            return True
-        slot = self.frozen_slot.pop(k, None)
-        if slot is not None:
-            fidx, ri, col = slot
-            prep = self.frozen[fidx]
-            prep["row_pos"][ri, col] = pt._PAD_ROW
-            prep["emeta"][ri, col] = 0
-            self._queue_dev_write(prep, ri, col)
-            self.masked_frozen += 1
-            return True
-        base_rem.append(k)
-        return False
+            writes.append(slots)
 
     def apply_log(self, log) -> None:
         """Batched replay of a pair-transition log [(insert?, src, dst,
         kind), ...].  Equivalent to calling insert/remove in order
-        (including anomaly accounting for caller-side drift), but
-        base-slot lookups are one vectorized binary search for the whole
-        batch instead of a scalar search per pair (slotmap.fold_log
-        documents the net-effect argument)."""
-        with events.span("uigc.layout.fold"):
-            self._fold_log(log)
+        (including anomaly accounting for caller-side drift), but as
+        array work for the whole batch (slotmap.net_log documents the
+        net-effect argument)."""
+        with events.span("uigc.layout.fold") as span:
+            span.set(**self._fold(log_columns(log)))
 
-    def _fold_log(self, log) -> None:
-        """:meth:`apply_log` without its span, for a caller that opens
-        the fold's span around work of its own too (the decremental
-        tracer's suspect sets)."""
+    def _fold(self, cols: np.ndarray) -> Dict[str, int]:
+        """:meth:`apply_log` on a log in slotmap.log_columns form, without
+        its span, for a caller that opens the fold's span around work of
+        its own too (the decremental tracer's suspect sets).  Returns the
+        fold's counts of where its keys resolved."""
         if self.use_jump:
-            # Batched jump-parent maintenance (pt.fold_jump_log):
+            # Batched jump-parent maintenance (pt.fold_jump_cols):
             # conservative about insert-and-remove-in-one-batch pairs,
             # so an insert-then-remove of the pair a pointer came from
             # always leaves it invalidated, exactly as sequential
             # insert()/remove() calls would.
-            pt.fold_jump_log(
-                self.jump_parent, log, self.n,
-                self._jump_writes if self._jump_dev is not None else None,
-            )
-        removes, cond_removes, inserts = fold_log(log)
+            changed = pt.fold_jump_cols(self.jump_parent, cols, self.n)
+            if self._jump_dev is not None and changed.size:
+                self._jump_writes.append(changed)
+        keys, first, last = net_log(cols)
+        first_ins, last_ins = cols[0][first] != 0, cols[0][last] != 0
 
-        base_rem: List[int] = []
-        for k in removes:
-            self._remove_key(k, base_rem)
-        if base_rem:
-            vals = self.base_slot.pop_batch(
-                np.fromiter(base_rem, np.int64, len(base_rem))
-            )
-            n_found = self._mask_base_slots(vals)
-            self.stats["anomalies"] += len(base_rem) - n_found
+        # First op a remove: remove from the home (absent: drift).
+        # Insert first, remove last: a no-op for a fresh key, but a key
+        # already live had an anomalous insert and a real remove.  Last
+        # op an insert: a duplicate of a key still live is drift, and the
+        # key leaves its home for the live tier only if a remove came
+        # between; else the key goes to the live tier, after the removals.
+        removes = ~first_ins
+        leaves = removes | ~last_ins | (first != last)  # if it has a home
 
-        # Insert-first/remove-last keys: net no-op unless the key was
-        # already live (anomalous duplicate insert followed by a real
-        # remove) — then remove it, like the sequential replay would.
-        cond_base: List[int] = []
-        for k in cond_removes:
-            if k in self.pending or k in self.frozen_slot:
-                self.stats["anomalies"] += 1
-                self._remove_key(k, cond_base)
-            else:
-                cond_base.append(k)
-        if cond_base:
-            vals = self.base_slot.pop_batch(
-                np.fromiter(cond_base, np.int64, len(cond_base))
-            )
-            self.stats["anomalies"] += self._mask_base_slots(vals)
+        # Each key's home before the fold, looked up in the order the
+        # scalar replay looks: the live tier, the frozen tiers, the base
+        # (popped there at once where the key leaves it).
+        home = np.full(keys.size, _MISSING, dtype=np.int8)
+        in_p, p_pos = _in_sorted(self.pending, keys)
+        home[in_p] = _PENDING
+        rest = np.nonzero(~in_p)[0]
+        ftier, fpos = self.frozen_slots.find(keys[rest])
+        in_f = ftier >= 0
+        home[rest[in_f]] = _FROZEN
+        f_out = leaves[rest[in_f]]
+        ftier, fpos = ftier[in_f][f_out], fpos[in_f][f_out]
+        rest = rest[~in_f]
+        b_out = leaves[rest]
+        b_vals = np.empty(rest.size, dtype=np.int64)
+        b_vals[b_out] = self.base_slot.pop_batch(keys[rest[b_out]])
+        b_vals[~b_out] = self.base_slot.get_batch(keys[rest[~b_out]])
+        in_b = b_vals >= 0
+        home[rest[in_b]] = _BASE
+        found = home != _MISSING
+        self.stats["anomalies"] += int(
+            (removes & ~found).sum()
+            + (first_ins & ~last_ins & found).sum()
+            + (first_ins & last_ins & found).sum()
+        )
 
-        if inserts:
-            fresh: List[int] = []
-            for k in inserts:
-                if k in self.pending or k in self.frozen_slot:
-                    self.stats["anomalies"] += 1
-                    continue
-                self.pending[k] = None
-                fresh.append(k)
-            if fresh:
-                # Anomalous duplicate-with-base inserts are harmless for
-                # liveness (contributions are OR'd) but tracked for
-                # diagnostics, batched.
-                karr = np.fromiter(fresh, np.int64, len(fresh))
-                present = self.base_slot.get_batch(karr) >= 0
-                n_dup = int(present.sum())
-                if n_dup:
-                    self.stats["anomalies"] += n_dup
-                    for k in karr[present].tolist():
-                        del self.pending[k]
+        for t in np.unique(ftier).tolist():
+            pos = fpos[ftier == t]
+            self._mask(self.frozen[t], self.frozen_slots.kill(t, pos))
+            self.masked_frozen += pos.size
+        b_slots = b_vals[b_out & in_b]
+        if b_slots.size:
+            self._mask(self.base, b_slots)
+            self.masked_base += b_slots.size
+        pending = np.delete(self.pending, p_pos[leaves & in_p])
+        new = keys[last_ins & (leaves | ~found)]  # sorted, as keys are
+        self.pending = np.insert(pending, np.searchsorted(pending, new), new)
+
+        counts = {
+            "fold_keys": int(keys.size),
+            "fold_pending": int(in_p.sum()),
+            "fold_frozen": int(in_f.sum()),
+            "fold_base": int((home == _BASE).sum()),
+            "fold_missing": int((~found).sum()),
+        }
+        for k, v in counts.items():
+            self.stats[k] += v
+        return counts
 
     @property
     def churn(self) -> int:
         return (
-            len(self.frozen_slot)
+            len(self.frozen_slots)
             + len(self.pending)
             + self.masked_base
             + self.masked_frozen
@@ -473,11 +471,11 @@ class IncrementalCudaLayout:
         if len(self.frozen) > self.max_frozen:
             self._consolidate_frozen()
         preps = [self.base] + self.frozen
-        if self.pending:
-            m = len(self.pending)
+        if self.pending.size:
+            m = self.pending.size
             while self._xla_cap < m:
                 self._xla_cap *= 2
-            psrc, pdst = unpack_keys(np.fromiter(self.pending, np.int64, m))
+            psrc, pdst = unpack_keys(self.pending)
             preps.append(pt.xla_tier(psrc, pdst, self.n, self._xla_cap))
         return preps
 
@@ -515,9 +513,9 @@ class IncrementalCudaLayout:
         else:
             writes = self._dev_writes[pid]
             if writes:
-                packed = torch.from_numpy(
-                    np.fromiter(writes, np.int64, len(writes))
-                ).to(self.device)
+                packed = torch.from_numpy(np.concatenate(writes)).to(
+                    self.device
+                )
                 rows, cols = packed >> 8, packed & 0xFF
                 mirror["row_pos"][rows, cols] = int(pt._PAD_ROW)
                 mirror["emeta"][rows, cols] = 0
@@ -535,11 +533,9 @@ class IncrementalCudaLayout:
             )
             self._jump_writes.clear()
         elif self._jump_writes:
-            k = len(self._jump_writes)
-            idx = np.fromiter(self._jump_writes.keys(), np.int64, k)
-            vals = np.fromiter(self._jump_writes.values(), np.int64, k)
+            idx = np.unique(np.concatenate(self._jump_writes))
             self._jump_dev[torch.from_numpy(idx).to(self.device)] = (
-                torch.from_numpy(vals.astype(np.int32)).to(self.device)
+                torch.from_numpy(self.jump_parent[idx]).to(self.device)
             )
             self._jump_writes.clear()
         return self._jump_dev

@@ -68,6 +68,7 @@ from .propagate import (  # the kernel ABI, named as the reference names it
     pack_hits_words,
     propagate_words,
 )
+from .slotmap import log_columns
 from ..utils import events
 from ..utils.platform import resolve_device
 from ..utils.validation import require
@@ -133,9 +134,9 @@ def jump_parents(psrc, pdst, n: int) -> np.ndarray:
     return j
 
 
-def fold_jump_log(jump_parent, log, n: int, writes=None) -> None:
-    """Vectorized jump-parent maintenance for one pair-transition batch
-    ``[(insert?, src, dst, kind), ...]`` — the batched form of the
+def fold_jump_cols(jump_parent, cols: np.ndarray, n: int) -> np.ndarray:
+    """Vectorized jump-parent maintenance for one pair-transition batch in
+    ``slotmap.log_columns`` form — the batched form of the
     min-fold-on-insert / invalidate-on-remove rules (``jump_parents``),
     shared by the single-device and mesh layout planes.
 
@@ -149,44 +150,38 @@ def fold_jump_log(jump_parent, log, n: int, writes=None) -> None:
     cross a dead edge, which this can never produce.  Ids >= ``n``
     (node spaces that grew past the layout) are ignored.
 
-    Mutates ``jump_parent`` in place; when ``writes`` is a dict the
-    changed entries are recorded there too (the device-mirror scatter
-    queue), O(changed) not O(batch)."""
-    if not log:
-        return
-    arr = np.asarray(log, dtype=np.int64).reshape(len(log), -1)
-    ins = arr[:, 0] != 0
-    src, dst = arr[:, 1], arr[:, 2]
+    Mutates ``jump_parent`` in place and returns the destinations whose
+    entry changed (repeats possible): the device mirror's writes, whose
+    values are the host array's."""
+    ins = cols[0] != 0
+    src, dst = cols[1], cols[2]
     ok = (src >= 0) & (src < n) & (dst >= 0) & (dst < n)
     rs, rd = src[~ins & ok], dst[~ins & ok]
+    changed = [np.zeros(0, dtype=np.int64)]
     if rd.size:
-        hit = jump_parent[rd] == rs
-        hrd = rd[hit]
-        if hrd.size:
-            jump_parent[hrd] = n
-            if writes is not None:
-                for d in hrd.tolist():
-                    writes[d] = n
+        hrd = rd[jump_parent[rd] == rs]
+        jump_parent[hrd] = n
+        changed.append(hrd)
     isrc, idst = src[ins & ok], dst[ins & ok]
     if isrc.size and rd.size:
-        removed = set(zip(rs.tolist(), rd.tolist()))
-        keep = np.fromiter(
-            ((s, d) not in removed
-             for s, d in zip(isrc.tolist(), idst.tolist())),
-            bool, isrc.size,
-        )
+        keep = ~np.isin((isrc << 32) | idst, (rs << 32) | rd, kind="sort")
         isrc, idst = isrc[keep], idst[keep]
     if isrc.size:
-        before = jump_parent[idst].copy()
-        np.minimum.at(
-            jump_parent, idst, isrc.astype(jump_parent.dtype)
-        )
-        if writes is not None:
-            after = jump_parent[idst]
-            changed = after < before
-            for d, v in zip(idst[changed].tolist(),
-                            after[changed].tolist()):
-                writes[d] = v
+        before = jump_parent[idst]
+        np.minimum.at(jump_parent, idst, isrc.astype(jump_parent.dtype))
+        changed.append(idst[jump_parent[idst] < before])
+    return np.concatenate(changed)
+
+
+def fold_jump_log(jump_parent, log, n: int, writes=None) -> None:
+    """:func:`fold_jump_cols` over a log [(insert?, src, dst, kind),
+    ...]; when ``writes`` is a dict the changed entries are recorded
+    there too (dst -> final host value, the device-mirror scatter
+    queue)."""
+    changed = fold_jump_cols(jump_parent, log_columns(log), n)
+    if writes is not None and changed.size:
+        changed = np.unique(changed)
+        writes.update(zip(changed.tolist(), jump_parent[changed].tolist()))
 
 
 def jump_parents_from_graph(
