@@ -116,6 +116,9 @@ def test_trace_across_cards_equals_one_card(cards):
             torch.cuda.synchronize()
             assert [m.device for m in mark] == list(mesh.devices)
             assert prop.launches["propagate_gated"] == cards * stats["n_sweeps"]
+            # the jump kernel once a distinct card a sweep (auto only)
+            jumps = len(mesh.distinct) * stats["n_sweeps"] if jump else 0
+            assert prop.launches["jump"] == jumps
             marks[label] = to_host(mark)[:N]
             ms = p50_ms(fn, inp["args"] + jump)
             print(f"[mesh-cards] n={N} shards={cards} mode={mode} "

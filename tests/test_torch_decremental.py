@@ -14,9 +14,12 @@ import numpy as np
 import pytest
 
 from uigc_tpu.ops import pallas_decremental as ref_dec
+from uigc_tpu_torch.models.graphgen import powerlaw_actor_graph
 from uigc_tpu_torch.ops import cuda_decremental as cdec
+from uigc_tpu_torch.ops import cuda_trace as ct
 from uigc_tpu_torch.ops import trace as trace_ops
 from uigc_tpu_torch.ops.cuda_incremental import EDGE, SUP
+from uigc_tpu_torch.parallel import sharded_trace as par
 
 F = trace_ops
 
@@ -213,3 +216,69 @@ def test_newly_in_use_node_gets_marked():
     assert got[0] and got[1] and not got[2]
     flags[2] = F.FLAG_IN_USE | F.FLAG_INTERNED
     assert tracer.marks(flags, recv)[[0, 1, 2]].all()
+
+
+def cold_wake_is_full_trace_one_device(g, mode):
+    n = g["flags"].shape[0]
+    args = (g["edge_src"], g["edge_dst"], g["edge_weight"], g["supervisor"])
+    jp = (ct.jump_parents_from_graph(*args, n)
+          if mode in (ct.MODE_JUMP, ct.MODE_AUTO) else None)
+    full, st = ct.trace_marks_layouts(
+        g["flags"], g["recv_count"], [ct.prepare_chunks(*args, n)],
+        device="cpu", mode=mode, jump_parent=jp, with_stats=True)
+    tracer = cdec.DecrementalTracer(n, device="cpu", mode=mode)
+    tracer.rebuild(*args)
+    tracer.collect_stats = True
+    cold = tracer.marks(g["flags"], g["recv_count"])
+    wake = tracer.last_stats
+    assert wake["closure_sweeps"] == 0
+    assert wake["n_sweeps"] == st["n_sweeps"] > 0
+    assert wake["host_syncs"] == st["host_syncs"] + 1  # the empty closure
+    return full, cold
+
+
+def cold_wake_is_full_trace_mesh(g, mode, shards=4):
+    n = g["flags"].shape[0]
+    chunk = shards * ct.S_ROWS * ct.LANE
+    n_pad = -(-n // chunk) * chunk
+    flags = np.zeros(n_pad, np.uint8)
+    flags[:n] = g["flags"]
+    recv = np.zeros(n_pad, np.int64)
+    recv[:n] = g["recv_count"]
+    live = g["edge_weight"] > 0
+    sup_src = np.nonzero(g["supervisor"] >= 0)[0]
+    psrc = np.concatenate([g["edge_src"][live], sup_src])
+    pdst = np.concatenate([g["edge_dst"][live], g["supervisor"][sup_src]])
+    stacked, meta, _ = par.pack_shard_layouts(psrc, pdst, n_pad, shards)
+    bucket_m = 64
+    layout = (stacked["bmeta1"], stacked["bmeta2"], stacked["row_pos"],
+              stacked["emeta"], np.full((shards, bucket_m), n_pad, np.int32),
+              np.zeros((shards, bucket_m), np.int32))
+    if mode in (ct.MODE_JUMP, ct.MODE_AUTO):
+        layout += (ct.jump_parents(psrc, pdst, n_pad),)
+    mesh = par.build_mesh(shards, "cpu")
+    geom = (mesh, n_pad, meta["shard_size"], meta["n_blocks"], meta["r_rows"],
+            meta["s_rows"], bucket_m)
+    full = par.make_sharded_cuda_trace(*geom, mode=mode)(flags, recv, *layout)
+    zero = np.zeros(n_pad // 32, np.int32)
+    cold = par.make_sharded_decremental_wake(*geom, mode=mode)(
+        flags, recv, *[zero] * 7, *layout)[0]
+    return par.to_host(full)[:n], par.to_host(cold)[:n]
+
+
+@pytest.mark.parametrize("plane,mode", [
+    ("one device", "push"), ("one device", "pull"), ("one device", "jump"),
+    ("one device", "auto"), ("mesh", "push"), ("mesh", "auto")])
+def test_cold_wake_is_the_full_trace(plane, mode):
+    """A wake from zero previous state is the full trace: an empty
+    closure, then a repair that sweeps as the full trace sweeps, on one
+    device and on a CPU mesh of 4 shards, to the oracle's marks."""
+    g = powerlaw_actor_graph(50_000, seed=7, garbage_fraction=0.5)
+    if plane == "mesh":
+        full, cold = cold_wake_is_full_trace_mesh(g, mode)
+    else:
+        full, cold = cold_wake_is_full_trace_one_device(g, mode)
+    assert np.array_equal(cold, full)
+    assert np.array_equal(full, trace_ops.trace_marks_np(
+        g["flags"], g["recv_count"], g["supervisor"], g["edge_src"],
+        g["edge_dst"], g["edge_weight"]))

@@ -47,8 +47,10 @@ DEFAULTS: Dict[str, Any] = {
     # Which shadow-graph implementation the collector uses:
     #   "oracle" - pointer-based graph mirroring the JVM semantics exactly
     #   "array"  - dense-array graph folded on host (numpy)
-    #   "device" - dense-array graph with the trace run on the TPU via JAX
-    #   "native" - C++ data plane (uigc_tpu/native/), batch fold + trace
+    #   "device" - dense-array graph with the trace run on the card: the
+    #              propagate kernel's fixpoint (ops/cuda_trace.py)
+    #   "native" - C++ data plane (uigc_tpu_torch/native/), batch fold +
+    #              trace
     #   "mesh"   - fold/trace state sharded by node range across the
     #              cards of a mesh (engines/crgc/mesh.py); per-wake deltas
     #              stream to the shards, each trace sweep runs the
@@ -56,7 +58,7 @@ DEFAULTS: Dict[str, Any] = {
     #              mark words onto every card (peer copies over NVLink)
     #   "decremental" - device trace that re-derives only the churn's
     #              affected region per wake from the previous fixpoint
-    #              (ops/pallas_decremental.py: suspect closure + repair)
+    #              (ops/cuda_decremental.py: suspect closure + repair)
     #   "mesh-decremental" - the mesh backend with the decremental wake
     #              per shard (one word gather per sweep)
     "uigc.crgc.shadow-graph": "array",
@@ -70,8 +72,8 @@ DEFAULTS: Dict[str, Any] = {
     # cuda:n-1 (0 = every visible card; more than are visible raises);
     # on "cpu" that many shards on the CPU (0 = one).
     "uigc.crgc.mesh-devices": 0,
-    # Propagation strategy for the device-trace fixpoint (the Pallas
-    # "device"/"decremental"/"mesh*" backends; ops/pallas_trace.py):
+    # Propagation strategy for the card's mark fixpoint (the "device",
+    # "decremental" and "mesh*" backends; ops/cuda_trace.py):
     #   "push" - source-push sweeps over the dirty-chunk frontier (the
     #            pre-mode behavior; O(diameter) sweeps)
     #   "pull" - push + destination-pull saturation gates: blocks whose
@@ -81,7 +83,8 @@ DEFAULTS: Dict[str, Any] = {
     #            array squared each sweep (O(log diameter) sweeps)
     #   "auto" - jump always on, pull gates switched per sweep when the
     #            dirty-chunk density crosses the pull threshold
-    # A config knob so A/B runs (BENCH_TPU_SESSION) need no code edits.
+    # A config knob so A/B runs (tools/sweep_profile.py, portbench's
+    # configurations) need no code edits.
     "uigc.crgc.trace-mode": "auto",
     # Dirty-chunk density (fraction of walk chunks dirty) above which
     # "auto" turns the pull gates on for a sweep; tuned from

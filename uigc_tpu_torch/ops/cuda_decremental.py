@@ -4,8 +4,9 @@ Port of ``uigc_tpu/ops/pallas_decremental.py`` (``_build_wake_fn`` and
 ``DecrementalTracer``), held against the reference tracer and the numpy
 oracle wake for wake by ``tests/test_torch_decremental.py``.  The
 reference's wake is one jitted device program with two
-``jax.lax.while_loop``s; here both loops run on the host and read their
-``changed`` flag once per sweep (counted as ``host_syncs`` in the stats).
+``jax.lax.while_loop``s; here both are calls of the full trace's host
+loop (``cuda_trace.SweepLoop``), which reads its ``changed`` flag once
+per sweep (counted as ``host_syncs`` in the stats).
 
 Marks do not shrink monotonically under churn — releasing a ref can turn
 live actors into garbage — so a sound incremental wake must re-derive
@@ -46,7 +47,6 @@ changed-flag read, ``host_syncs`` of them.
 
 from __future__ import annotations
 
-import time
 from typing import Dict, List, Optional
 
 import numpy as np
@@ -60,6 +60,9 @@ from .cuda_incremental import IncrementalCudaLayout
 from .slotmap import log_columns
 
 _fn_cache: Dict[tuple, object] = {}
+
+CLOSURE_SPANS = pt.LoopSpans("uigc.wake.closure.sweep", "uigc.wake.wait")
+REPAIR_SPANS = pt.LoopSpans("uigc.wake.repair.sweep", "uigc.wake.wait")
 
 
 def _build_wake_fn(
@@ -78,65 +81,28 @@ def _build_wake_fn(
     ``counts`` the host ints ``closure_sweeps``, ``n_sweeps`` (the
     repair's) and ``host_syncs`` (every changed-flag read).
 
-    ``mode`` applies to the REPAIR fixpoint only: on a cold start the
-    repair IS the full derivation, which is where the O(diameter) sweep
-    wall lives.  The closure phase stays a plain push fixpoint: it is
-    bounded by the churn's region, and jump hits there would only
-    over-approximate the closure.  ``with_stats`` adds to ``counts``
-    the FULL-gated tiles of the forced sweep and the per-sweep frontier
-    decomposition (device tensors)."""
+    Both phases are calls of one ``cuda_trace.SweepLoop``.  ``mode``
+    applies to the REPAIR fixpoint only: on a cold start the repair IS
+    the full derivation, which is where the O(diameter) sweep wall lives.
+    The closure phase stays a plain push fixpoint: it is bounded by the
+    churn's region, and jump hits there would only over-approximate the
+    closure.  ``with_stats`` adds to ``counts`` the repair's per-sweep
+    frontier decomposition and the FULL-gated tiles of its forced sweep
+    (device tensors)."""
     F = trace_ops
-    require(
-        mode in pt.TRACE_MODES, "config.trace_mode",
-        "bad trace mode", mode=mode, valid=pt.TRACE_MODES,
-    )
-    use_jump = mode in (pt.MODE_JUMP, pt.MODE_AUTO)
-    use_pull = mode in (pt.MODE_PULL, pt.MODE_AUTO)
-
-    geoms = {spec[-2:] for spec in specs if spec[0] != "xla"}
-    require(len(geoms) == 1, "trace.geometry",
-            "packed layouts must share (sub, group)", geoms=sorted(geoms))
-    ((_, group),) = geoms
-    group_rows = pt.ROWS * group
-    n_chunks = r_rows // group_rows
-    sup_words = s_rows * (pt.LANE // pt.WORD_BITS)  # words per supertile
-    pull_cut = max(1, int(round(pull_density * n_chunks)))
-
-    # One gated sweep serves both phases: a zero gate vector makes the
-    # gated kernel behave exactly like the plain one.
-    sweep = pt.build_sweep_contribs(specs, n, n_super, s_rows)
-
-    def pack(active):
-        return pt.pack_bools(active, n, r_rows)
-
-    def dirty_chunks(table, table_prev):
-        return pt.dirty_group_lists(table, table_prev, n_chunks, group_rows)
-
-    def per_super(words):
-        return (
-            (words.reshape(-1)[: n_super * sup_words] != 0)
-            .reshape(n_super, sup_words)
-            .any(dim=1)
-            .to(torch.int32)
-        )
+    loop = pt.SweepLoop(n, specs, n_super, r_rows, s_rows, mode, pull_density)
 
     def wake_fn(flags, recv_count, del_w, fresh_w, prev_mark_w,
                 prev_seed_w, prev_halted_w, prev_iu_w, prev_table, *rest):
-        if use_jump:
-            jump_j, *layout_args = rest
-            jump_j = jump_j.to(torch.int32)
-        else:
-            jump_j, layout_args = None, rest
-        dev = flags.device
+        jump_j, layout_args = loop.split_jump(rest)
         in_use = F.flag_set(flags, F.FLAG_IN_USE)
         halted = F.flag_set(flags, F.FLAG_HALTED)
         seed = F.seeds_torch(flags, recv_count)
 
-        iu_w = pack(in_use)
-        nh_w = pack(~halted)
-        halted_w = pack(halted)
-        seed_w = pack(in_use & ~halted & seed)
-        host_syncs = 0
+        iu_w = loop.pack(in_use)
+        nh_w = loop.pack(~halted)
+        halted_w = loop.pack(halted)
+        seed_w = loop.pack(in_use & ~halted & seed)
 
         # --- 1. suspect seeds --------------------------------------- #
         # A previously-marked node is suspect when any input of its old
@@ -150,110 +116,37 @@ def _build_wake_fn(
         ) & prev_mark_w
 
         # --- 2. closure: marks that depended on a suspect ----------- #
-        zero_gate = torch.zeros(n_super, dtype=torch.int32, device=dev)
-        closure_w = s_w
-        d, changed = dirty_chunks(s_w, torch.zeros_like(s_w))
-        with events.span("uigc.wake.wait"):
-            grow = bool(changed)  # host sync
-        host_syncs += 1
-        closure_sweeps = 0
-        while grow:
-            with events.span("uigc.wake.closure.sweep"):
-                hit_w = sweep(closure_w, d, layout_args, gate=zero_gate)
-                new_closure = closure_w | (hit_w & prev_mark_w)
-                d, changed = dirty_chunks(new_closure, closure_w)
-                closure_w = new_closure
-                closure_sweeps += 1
-                with events.span("uigc.wake.wait"):
-                    grow = bool(changed)  # host sync
-                host_syncs += 1
+        # A push fixpoint grown within the previous marks; one gated
+        # sweep form serves both phases (a zero gate makes the gated
+        # kernel behave exactly like the plain one).
+        closure_w, _, closure_sweeps, closure_waits, _ = loop.run(
+            loop.start(s_w, torch.zeros_like(s_w)), prev_mark_w, None,
+            layout_args, mode=pt.MODE_PUSH, gated=True, spans=CLOSURE_SPANS)
 
         # Per-supertile gate: closure members must re-derive; fresh
         # insert destinations must see their new pairs' contributions at
         # least once (a new edge changes no node word, so the dirty
         # machinery alone would never walk it); newly-in-use nodes (slot
         # reuse) likewise.  Gating only ADDS contributions, so it is
-        # monotone-safe.
+        # monotone-safe.  The first repair sweep forces these tiles to
+        # walk their whole span (GATE_FULL); later sweeps are monotone
+        # growth on the ordinary dirty walk.
         suspect_g = (
-            per_super(closure_w)
-            | per_super(fresh_w)
-            | per_super(iu_w & ~prev_iu_w)
+            loop.supertile_any(closure_w)
+            | loop.supertile_any(fresh_w)
+            | loop.supertile_any(iu_w & ~prev_iu_w)
         )
 
         # --- 3. repair fixpoint ------------------------------------- #
-        mark_w = (prev_mark_w & ~closure_w) | seed_w
-        table = mark_w & nh_w
-        d, _ = dirty_chunks(table, prev_table)
-        trans_w = iu_w & nh_w  # jump-transparent intermediates
-        with events.span("uigc.wake.wait"):
-            n_dirty = int(d[n_chunks])  # readback: the loop's changed flag
-        host_syncs += 1
-        run = n_dirty > 0
-        if not run:
-            # Run at least one gated sweep whenever anything is suspect,
-            # even if the table diff alone is empty.
-            with events.span("uigc.wake.wait"):
-                run = bool(suspect_g.any())  # host sync
-            host_syncs += 1
-        use_gate = True
-        sweeps = 0
-        full_tiles = torch.zeros((), dtype=torch.int64, device=dev)
-        if with_stats:
-            st = {k: torch.zeros(pt.MAX_SWEEP_STATS, dtype=torch.int32,
-                                 device=dev)
-                  for k in ("dirty_chunks", "tiles_skipped", "pull_on")}
-        while run:
-            with events.span("uigc.wake.repair.sweep"):
-                # Gate composition: the repair forcing (GATE_FULL on
-                # suspect tiles, first sweep only) under the pull skip
-                # (GATE_SKIP on saturated tiles — a saturated tile has
-                # nothing left to re-derive, contributions are not
-                # carried across sweeps).
-                base_gate = suspect_g if use_gate else zero_gate
-                pull_on = False
-                if use_pull:
-                    sat = pt.saturated_tiles(mark_w, iu_w, n_super,
-                                             sup_words)
-                    pull_on = mode != pt.MODE_AUTO or n_dirty >= pull_cut
-                    gate = (
-                        torch.where(sat > 0,
-                                    torch.full_like(sat, pt.GATE_SKIP),
-                                    base_gate)
-                        if pull_on else base_gate
-                    )
-                else:
-                    gate = base_gate
-                if use_gate:
-                    full_tiles = (gate == pt.GATE_FULL).sum()
-                hit_w = sweep(table, d, layout_args, gate=gate)
-                new_mark_w = mark_w | (hit_w & iu_w)
-                if use_jump:
-                    jump_w, jump_j = pt.jump_sweep_words(table, jump_j,
-                                                         trans_w, iu_w, n)
-                    new_mark_w |= jump_w
-                new_table = new_mark_w & nh_w
-                if with_stats:
-                    i = min(sweeps, pt.MAX_SWEEP_STATS - 1)
-                    st["dirty_chunks"][i] = n_dirty
-                    if use_pull:
-                        st["tiles_skipped"][i] = (sat.sum() if pull_on
-                                                  else 0)
-                        st["pull_on"][i] = int(pull_on)
-                d, _ = dirty_chunks(new_table, table)
-                mark_w, table = new_mark_w, new_table
-                # The gated sweep fully re-derives suspect supertiles;
-                # the monotone dirty machinery is sufficient (and
-                # cheaper) after.
-                use_gate = False
-                sweeps += 1
-                with events.span("uigc.wake.wait"):
-                    n_dirty = int(d[n_chunks])  # readback: the changed flag
-                host_syncs += 1
-                run = n_dirty > 0
+        mark_w, table, sweeps, repair_waits, st = loop.run(
+            loop.start((prev_mark_w & ~closure_w) | seed_w, prev_table, nh_w,
+                       stats=with_stats),
+            iu_w, nh_w, layout_args, jump_j=jump_j, gate=suspect_g,
+            spans=REPAIR_SPANS)
         counts = dict(closure_sweeps=closure_sweeps, n_sweeps=sweeps,
-                      host_syncs=host_syncs)
+                      host_syncs=closure_waits + repair_waits)
         if with_stats:
-            counts.update(st, full_tiles=full_tiles)
+            counts.update(st)
         return mark_w, seed_w, halted_w, iu_w, table, counts
 
     return wake_fn
@@ -261,32 +154,10 @@ def _build_wake_fn(
 
 def get_wake_fn(n, specs, n_super, r_rows, s_rows, mode=pt.MODE_PUSH,
                 pull_density=pt.DEFAULT_PULL_DENSITY, with_stats=False):
-    """Cached wake fn.  Keyed by layout geometry, so every lookup commits
-    a ``tpu.compile`` hit or miss (tag ``dec_wake``), by the rule in
-    telemetry/device.py."""
+    """Cached wake fn, tag ``dec_wake`` in ``cuda_trace.cached_fn``."""
     key = (n, tuple(specs), n_super, r_rows, s_rows, mode, pull_density,
            with_stats)
-    # No lock: collectors of several systems on one card can miss here
-    # together and build the same fn twice; both are equal, the last
-    # store wins, and each miss commits its own compile event.
-    fn = _fn_cache.get(key)
-    if fn is None:
-        t0 = time.perf_counter()
-        fn = _fn_cache[key] = _build_wake_fn(
-            n, tuple(specs), n_super, r_rows, s_rows, mode=mode,
-            pull_density=pull_density, with_stats=with_stats,
-        )
-        if events.recorder.enabled:
-            events.recorder.commit(
-                events.COMPILE, duration_s=time.perf_counter() - t0,
-                tag="dec_wake", geom=events.compile_geom(key), hit=False,
-            )
-    elif events.recorder.enabled:
-        events.recorder.commit(
-            events.COMPILE, tag="dec_wake",
-            geom=events.compile_geom(key), hit=True,
-        )
-    return fn
+    return pt.cached_fn(_fn_cache, "dec_wake", _build_wake_fn, key)
 
 
 class DecrementalTracer:

@@ -20,11 +20,13 @@ What it keeps, and how:
   as its plain twin.
 - **The fixpoint** (``_build_trace_fn_multi``) in all four modes (push,
   pull, jump, auto).  The reference's loop is one device program
-  (``jax.lax.while_loop``); here the loop runs on the host and reads the
-  dirty count once per sweep.  Those reads are counted in the stats as
-  ``host_syncs``.  The loop's stretches are ``uigc.fixpoint.*`` spans
-  (``utils/events.py`` ``span``): the seed, each sweep with its gates,
-  propagation, jump and dirty lists, each changed-flag wait, the unpack.
+  (``jax.lax.while_loop``); here the loop (:class:`SweepLoop`, which
+  also runs both phases of the decremental wake) runs on the host and
+  reads the dirty count once per sweep.  Those reads are counted in the
+  stats as ``host_syncs``.  The full trace's stretches are
+  ``uigc.fixpoint.*`` spans (``utils/events.py`` ``span``): the seed,
+  each sweep with its gates, propagation, jump and dirty lists, each
+  changed-flag wait, the unpack.
 - **The layout conversion.**  :func:`layout_to_device` turns a packed
   layout of numpy arrays, from either package's packer, into the port's
   tensors; :func:`graph_to_device` does the same for a graph dict.
@@ -48,7 +50,7 @@ only positive-weight edges propagate.
 from __future__ import annotations
 
 import time
-from typing import Dict
+from typing import Dict, NamedTuple, Optional
 
 import numpy as np
 import torch
@@ -802,6 +804,191 @@ def graph_to_device(graph: Dict, device=None) -> Dict:
 _fn_cache: Dict[tuple, object] = {}
 
 
+def pull_cut(pull_density: float, n_chunks: int) -> int:
+    """AUTO's per-sweep pull threshold, in dirty walk groups."""
+    return max(1, int(round(pull_density * n_chunks)))
+
+
+def pull_switch(mode: str, n_dirty: int, cut: int) -> bool:
+    """Whether a sweep skips saturated supertiles: every sweep in pull
+    mode, in auto mode once ``n_dirty`` walk groups reach ``cut``."""
+    return mode == MODE_PULL or (mode == MODE_AUTO and n_dirty >= cut)
+
+
+def pull_gate(base, mark_w, keep, n_super, sup_words):
+    """``base`` with GATE_SKIP on every saturated supertile.  Marks only
+    grow within one fixpoint, so a tile with no unmarked ``keep`` node
+    left gains nothing from a walk: skipping it loses no hit."""
+    sat = saturated_tiles(mark_w, keep, n_super, sup_words)
+    return base.masked_fill(sat > 0, GATE_SKIP)
+
+
+def supertile_any(words, n_super, sup_words):
+    """1 for each supertile whose words hold a set bit (int32)."""
+    return ((words.reshape(-1)[: n_super * sup_words] != 0)
+            .reshape(n_super, sup_words).any(dim=1).to(torch.int32))
+
+
+class LoopSpans(NamedTuple):
+    """The span a :class:`SweepLoop` opens over each stretch of a call;
+    a role left None opens nothing."""
+
+    sweep: str
+    wait: str
+    gate: Optional[str] = None
+    jump: Optional[str] = None
+    dirty: Optional[str] = None
+
+
+FIXPOINT_SPANS = LoopSpans("uigc.fixpoint.sweep", "uigc.fixpoint.wait",
+                           "uigc.fixpoint.gate", "uigc.fixpoint.jump",
+                           "uigc.fixpoint.dirty")
+
+
+def _span(name, **args):
+    return events._NO_SPAN if name is None else events.span(name, **args)
+
+
+class SweepLoop:
+    """The single-device mark fixpoint of one geometry: the full trace's
+    loop, and the decremental wake's closure and repair.
+
+    One call of :meth:`run` grows ``mark_w`` by each sweep's hits (the
+    propagate kernel over every layout, and the jump step where the mode
+    has one) masked by ``keep``, until the table (``mark_w & active``,
+    or the marks themselves where ``active`` is None) stops changing.
+    The host reads the dirty count once per sweep, plus once before the
+    first; those reads are the call's ``waits``.  Built once per
+    geometry, it holds no state between calls."""
+
+    def __init__(self, n, specs, n_super, r_rows, s_rows, mode, pull_density):
+        require(mode in TRACE_MODES, "config.trace_mode", "bad trace mode",
+                mode=mode, valid=TRACE_MODES)
+        geoms = {spec[-2:] for spec in specs if spec[0] != "xla"}
+        require(len(geoms) == 1, "trace.geometry",
+                "packed layouts must share (sub, group)", geoms=sorted(geoms))
+        ((_, group),) = geoms
+        self.n = n
+        self.r_rows = r_rows
+        self.n_super = n_super
+        self.mode = mode
+        self.use_jump = mode in (MODE_JUMP, MODE_AUTO)
+        self.group_rows = ROWS * group
+        self.n_chunks = r_rows // self.group_rows  # one walk group each
+        self.sup_words = s_rows * (LANE // WORD_BITS)  # words per supertile
+        self.pull_cut = pull_cut(pull_density, self.n_chunks)
+        self.sweep = build_sweep_contribs(specs, n, n_super, s_rows)
+
+    def pack(self, active):
+        return pack_bools(active, self.n, self.r_rows)
+
+    def supertile_any(self, words):
+        return supertile_any(words, self.n_super, self.sup_words)
+
+    def split_jump(self, rest):
+        """(jump parents or None, layout operands) of a fn's trailing
+        operands: jump and auto modes take the parents first."""
+        if not self.use_jump:
+            return None, rest
+        jump_j, *layout_args = rest
+        return jump_j.to(torch.int32), layout_args
+
+    def frontier(self, table, table_prev, summary):
+        """(dirty prefix, per-supertile changed bits or None): the bits
+        only under ``summary``, for the ``changed_supers`` stats row."""
+        if summary:
+            d, _, super_changed = hier_dirty_lists(
+                table, table_prev, self.n_chunks, self.group_rows,
+                self.n_super, self.sup_words)
+            return d, super_changed
+        return dirty_group_lists(table, table_prev, self.n_chunks,
+                                 self.group_rows)[0], None
+
+    def start(self, mark_w, table_prev, active=None, stats=False):
+        """The state :meth:`run` starts from: the marks, their table and
+        its frontier against ``table_prev``; with ``stats`` the run
+        records the per-sweep stats rows."""
+        table = mark_w if active is None else mark_w & active
+        return (mark_w, table) + self.frontier(table, table_prev, stats)
+
+    def run(self, state, keep, active, layout_args, *, mode=None,
+            jump_j=None, gate=None, gated=False, spans=FIXPOINT_SPANS):
+        """The loop from :meth:`start`'s ``state``: returns (mark_w,
+        table, sweeps, waits, stats rows or None).
+
+        ``mode`` defaults to the loop's own.  ``gate`` forces the first
+        sweep (GATE_FULL on the supertiles that must re-derive from all
+        their in-edges), and the loop then sweeps at least once when any
+        tile is forced.  The propagate kernel takes its gated form where
+        ``gate`` is given, ``gated`` is set or the mode pulls, and a zero
+        gate on the sweeps nothing forces or skips; its plain form
+        otherwise."""
+        mark_w, table, d, super_changed = state
+        stats = super_changed is not None
+        mode = self.mode if mode is None else mode
+        use_jump = mode in (MODE_JUMP, MODE_AUTO)
+        use_pull = mode in (MODE_PULL, MODE_AUTO)
+        dev = table.device
+        zero = None
+        if gate is not None or gated or use_pull:
+            zero = torch.zeros(self.n_super, dtype=torch.int32, device=dev)
+        base = zero if gate is None else gate
+        trans_w = keep & active if use_jump else None  # jump-transparent
+        jump_form = "cuda" if dev.type == "cuda" else "torch"
+        st = None
+        if stats:
+            st = {k: torch.zeros(MAX_SWEEP_STATS, dtype=torch.int32,
+                                 device=dev)
+                  for k in ("dirty_chunks", "changed_supers",
+                            "tiles_skipped", "pull_on")}
+            st["full_tiles"] = torch.zeros((), dtype=torch.int64, device=dev)
+        with _span(spans.wait):
+            n_dirty = int(d[self.n_chunks])  # readback: the loop's changed flag
+        waits = 1
+        go = n_dirty > 0
+        if not go and gate is not None:
+            with _span(spans.wait):
+                go = bool(gate.any())  # readback: a forced tile sweeps once
+            waits += 1
+        sweeps = 0
+        while go:
+            pull_on = use_pull and pull_switch(mode, n_dirty, self.pull_cut)
+            with _span(spans.sweep, dirty_groups=n_dirty, pull=pull_on):
+                g = base
+                if use_pull:
+                    with _span(spans.gate):
+                        if pull_on:
+                            g = pull_gate(base, mark_w, keep, self.n_super,
+                                          self.sup_words)
+                hit_w = self.sweep(table, d, layout_args, gate=g)
+                new_mark_w = mark_w | (hit_w & keep)
+                if use_jump:
+                    with _span(spans.jump, form=jump_form):
+                        jump_w, jump_j = jump_sweep_words(table, jump_j,
+                                                          trans_w, keep, self.n)
+                        new_mark_w |= jump_w
+                new_table = new_mark_w if active is None else new_mark_w & active
+                if st is not None:
+                    i = min(sweeps, MAX_SWEEP_STATS - 1)
+                    st["dirty_chunks"][i] = n_dirty
+                    st["changed_supers"][i] = super_changed.sum()
+                    if pull_on:
+                        st["tiles_skipped"][i] = (g == GATE_SKIP).sum()
+                    if use_pull:
+                        st["pull_on"][i] = int(pull_on)
+                    if sweeps == 0 and gate is not None:
+                        st["full_tiles"] = (g == GATE_FULL).sum()
+                with _span(spans.dirty):
+                    d, super_changed = self.frontier(new_table, table, stats)
+                mark_w, table, base = new_mark_w, new_table, zero
+                sweeps += 1
+                with _span(spans.wait):
+                    n_dirty = int(d[self.n_chunks])  # readback: the changed flag
+                waits += 1
+                go = n_dirty > 0
+        return mark_w, table, sweeps, waits, st
+
+
 def _build_trace_fn_multi(
     n: int,
     specs: tuple,
@@ -832,119 +1019,31 @@ def _build_trace_fn_multi(
     syncs the loop made, and the per-sweep frontier decomposition (dirty
     chunks, changed supertiles, tiles skipped, pull-gate decision)."""
     F = trace_ops
-    require(
-        mode in TRACE_MODES, "config.trace_mode",
-        "bad trace mode", mode=mode, valid=TRACE_MODES,
-    )
-    use_jump = mode in (MODE_JUMP, MODE_AUTO)
-    use_pull = mode in (MODE_PULL, MODE_AUTO)
-
-    geoms = {spec[-2:] for spec in specs if spec[0] != "xla"}
-    require(len(geoms) == 1, "trace.geometry",
-            "packed layouts must share (sub, group)", geoms=sorted(geoms))
-    ((_, group),) = geoms
-    group_rows = ROWS * group
-    n_chunks = r_rows // group_rows  # dirty granularity = one walk group
-    sup_words = s_rows * (LANE // WORD_BITS)  # words per supertile
-    # AUTO's per-sweep pull decision, in dirty-chunk counts
-    pull_cut = max(1, int(round(pull_density * n_chunks)))
-    # the level-1 summary is computed only where something reads it
-    track_super = use_pull or with_stats
-    sweep = build_sweep_contribs(specs, n, n_super, s_rows)
-
-    def dirty(table, table_prev):
-        if track_super:
-            return hier_dirty_lists(table, table_prev, n_chunks, group_rows,
-                                    n_super, sup_words)
-        return (*dirty_group_lists(table, table_prev, n_chunks, group_rows),
-                None)
+    loop = SweepLoop(n, specs, n_super, r_rows, s_rows, mode, pull_density)
 
     def trace_fn(flags, recv_count, *rest):
+        jump_j, layout_args = loop.split_jump(rest)
         with events.span("uigc.fixpoint", layouts=len(specs),
                          mode=mode) as fixpoint:
-            marks, sweeps, waits, st = run(flags, recv_count, *rest)
+            with events.span("uigc.fixpoint.seed"):
+                in_use = F.flag_set(flags, F.FLAG_IN_USE)
+                halted = F.flag_set(flags, F.FLAG_HALTED)
+                # Gate tables: in_use bits (mark gating) and ~halted bits
+                # (propagation gating); bits >= n stay 0 in both.
+                iu_w = loop.pack(in_use)
+                nh_w = loop.pack(~halted)
+                mark_w = loop.pack(
+                    in_use & ~halted & F.seeds_torch(flags, recv_count))
+                state = loop.start(mark_w, torch.zeros_like(mark_w), nh_w,
+                                   stats=with_stats)
+            mark_w, _, sweeps, waits, st = loop.run(
+                state, iu_w, nh_w, layout_args, jump_j=jump_j)
+            with events.span("uigc.fixpoint.unpack"):
+                marks = unpack_table(mark_w, n)
             fixpoint.set(sweeps=sweeps, waits=waits)
         if not with_stats:
             return marks
         return marks, dict(st, n_sweeps=sweeps, host_syncs=waits)
-
-    def run(flags, recv_count, *rest):
-        if use_jump:
-            jump_j, *layout_args = rest
-            jump_j = jump_j.to(torch.int32)
-        else:
-            jump_j, layout_args = None, rest
-        dev = flags.device
-        jump_form = "cuda" if dev.type == "cuda" else "torch"
-        with events.span("uigc.fixpoint.seed"):
-            in_use = F.flag_set(flags, F.FLAG_IN_USE)
-            halted = F.flag_set(flags, F.FLAG_HALTED)
-            mark0 = in_use & ~halted & F.seeds_torch(flags, recv_count)
-
-            # Gate tables: in_use bits (mark gating) and ~halted bits
-            # (propagation gating); bits >= n stay 0 in both.
-            iu_w = pack_bools(in_use, n, r_rows)
-            nh_w = pack_bools(~halted, n, r_rows)
-            trans_w = iu_w & nh_w  # jump-transparent intermediates
-
-            mark_w = pack_bools(mark0, n, r_rows)
-            table = mark_w & nh_w
-            d, _, sup_ch = dirty(table, torch.zeros_like(table))
-            sat = (saturated_tiles(mark_w, iu_w, n_super, sup_words)
-                   if use_pull else None)
-        with events.span("uigc.fixpoint.wait"):
-            n_dirty = int(d[n_chunks])  # readback: the loop's changed flag
-        waits = 1
-        sweeps = 0
-        st = None
-        if with_stats:
-            st = {k: torch.zeros(MAX_SWEEP_STATS, dtype=torch.int32,
-                                 device=dev)
-                  for k in ("dirty_chunks", "changed_supers",
-                            "tiles_skipped", "pull_on")}
-        while n_dirty > 0:
-            pull_on = use_pull and (mode != MODE_AUTO or n_dirty >= pull_cut)
-            with events.span("uigc.fixpoint.sweep", dirty_groups=n_dirty,
-                             pull=pull_on):
-                gate = None
-                if use_pull:
-                    # Destination-side pull gates: marks only grow within
-                    # one fixpoint, so saturation only latches on, and a
-                    # tile can only flip where the level-1 summary fired
-                    # last sweep.
-                    with events.span("uigc.fixpoint.gate"):
-                        sat = torch.where(
-                            sup_ch > 0,
-                            saturated_tiles(mark_w, iu_w, n_super, sup_words),
-                            sat,
-                        )
-                        gate = (sat * GATE_SKIP if pull_on
-                                else torch.zeros_like(sat))
-                hit_w = sweep(table, d, layout_args, gate=gate)
-                new_mark_w = mark_w | (hit_w & iu_w)
-                if use_jump:
-                    with events.span("uigc.fixpoint.jump", form=jump_form):
-                        jump_w, jump_j = jump_sweep_words(table, jump_j,
-                                                          trans_w, iu_w, n)
-                        new_mark_w |= jump_w
-                new_table = new_mark_w & nh_w
-                if with_stats:
-                    i = min(sweeps, MAX_SWEEP_STATS - 1)
-                    st["dirty_chunks"][i] = n_dirty
-                    st["changed_supers"][i] = sup_ch.sum()
-                    if use_pull:
-                        st["tiles_skipped"][i] = sat.sum() if pull_on else 0
-                        st["pull_on"][i] = int(pull_on)
-                with events.span("uigc.fixpoint.dirty"):
-                    d, _, sup_ch = dirty(new_table, table)
-                mark_w, table = new_mark_w, new_table
-                sweeps += 1
-                with events.span("uigc.fixpoint.wait"):
-                    n_dirty = int(d[n_chunks])  # readback: the changed flag
-                waits += 1
-        with events.span("uigc.fixpoint.unpack"):
-            marks = unpack_table(mark_w, n)
-        return marks, sweeps, waits, st
 
     return trace_fn
 
@@ -968,6 +1067,32 @@ def get_trace_fn(
     )
 
 
+def cached_fn(cache: Dict, tag: str, build, key: tuple):
+    """``build(*key)``, memoised in ``cache`` by ``key``, a layout
+    geometry: every lookup commits a ``tpu.compile`` hit or miss under
+    ``tag``.  A miss is a new geometry, the churn the
+    ``recompile_storm`` alert reads (the rule in telemetry/device.py).
+    Building a fn compiles nothing; the kernel library is built once, on
+    first launch."""
+    # No lock: collectors of several systems on one card can miss here
+    # together and build the same fn twice; both are equal, the last
+    # store wins, and each miss commits its own compile event.
+    fn = cache.get(key)
+    if fn is None:
+        t0 = time.perf_counter()
+        fn = cache[key] = build(*key)
+        if events.recorder.enabled:
+            events.recorder.commit(
+                events.COMPILE, duration_s=time.perf_counter() - t0,
+                tag=tag, geom=events.compile_geom(key), hit=False,
+            )
+    elif events.recorder.enabled:
+        events.recorder.commit(
+            events.COMPILE, tag=tag, geom=events.compile_geom(key), hit=True,
+        )
+    return fn
+
+
 def get_trace_fn_multi(
     n: int,
     specs: tuple,
@@ -980,35 +1105,11 @@ def get_trace_fn_multi(
 ):
     """Cached trace fn over one or more pair layouts (operands per layout
     in ``device_args`` order, after flags/recv — and, for jump/auto
-    modes, after the jump-parent operand).  The cache is keyed by layout
-    geometry, so every lookup commits a ``tpu.compile`` hit or miss (tag
-    ``trace_fn``): a miss is a new geometry, the churn the
-    ``recompile_storm`` alert reads (the rule in telemetry/device.py).
-    Building a fn here compiles nothing; the kernel library is built
-    once, on first launch."""
+    modes, after the jump-parent operand); tag ``trace_fn`` in
+    :func:`cached_fn`."""
     key = (n, tuple(specs), n_super, r_rows, s_rows, mode, pull_density,
            with_stats)
-    # No lock: collectors of several systems on one card can miss here
-    # together and build the same fn twice; both are equal, the last
-    # store wins, and each miss commits its own compile event.
-    fn = _fn_cache.get(key)
-    if fn is None:
-        t0 = time.perf_counter()
-        fn = _fn_cache[key] = _build_trace_fn_multi(
-            n, tuple(specs), n_super, r_rows, s_rows, mode=mode,
-            pull_density=pull_density, with_stats=with_stats,
-        )
-        if events.recorder.enabled:
-            events.recorder.commit(
-                events.COMPILE, duration_s=time.perf_counter() - t0,
-                tag="trace_fn", geom=events.compile_geom(key), hit=False,
-            )
-    elif events.recorder.enabled:
-        events.recorder.commit(
-            events.COMPILE, tag="trace_fn",
-            geom=events.compile_geom(key), hit=True,
-        )
-    return fn
+    return cached_fn(_fn_cache, "trace_fn", _build_trace_fn_multi, key)
 
 
 def _host(x):

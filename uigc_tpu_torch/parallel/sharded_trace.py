@@ -34,7 +34,10 @@ Each sweep calls the hand-written kernel (``ops/propagate.py``
 ``propagate_words``) in its gated form once per shard, over the shard's
 own packed layout (global source ids, shard-local destinations), the
 global table and its dirty prefix, with the shard's own gate and word
-plane; a zero gate makes it the plain sweep.
+plane; a zero gate makes it the plain sweep.  In jump and auto modes the
+jump step (``cuda_trace.jump_sweep_words``, the jump kernel on a card)
+runs once per distinct device over its gathered table.  One loop,
+:meth:`_ShardOps.fixpoint`, runs the trace and both phases of the wake.
 
 Operands.  A *node-sharded* operand is a list of D tensors, shard i on
 ``mesh.devices[i]`` holding nodes (or packed words) ``[i * shard,
@@ -339,11 +342,12 @@ class _ShardOps:
     """The per-shard word-space primitives shared by the sharded trace
     and the sharded decremental wake (the reference's
     ``make_local_shard_ops``): local pack, the table gather, the sweep
-    and the jump.  One definition keeps the two fixpoints propagating
-    identically per sweep."""
+    and the fixpoint loop.  One definition keeps the two fixpoints
+    propagating identically per sweep."""
 
     def __init__(self, mesh: Mesh, n_pad: int, shard_size: int, r_rows: int,
-                 s_rows: int, sub: int, group: int):
+                 s_rows: int, sub: int, group: int, mode: str,
+                 pull_density: float):
         require(shard_size * mesh.size == n_pad
                 and shard_size % (s_rows * LANE) == 0, "mesh.shape",
                 "n_pad must split into shards of whole supertiles",
@@ -360,6 +364,8 @@ class _ShardOps:
         self.n_super = shard_size // (s_rows * LANE)
         self.sup_words = s_rows * (LANE // WORD_BITS)
         self.replica = mesh.replica
+        self.mode = mode
+        self.pull_cut = pt.pull_cut(pull_density, self.n_chunks)
         #: kernel calls per shard since this object was made
         self.calls = [0] * mesh.size
 
@@ -391,17 +397,9 @@ class _ShardOps:
         """The dirty walk groups: the sweep's one host read."""
         return int(ds[0][self.n_chunks])  # readback: the loop's changed flag
 
-    def zero_gates(self) -> List[torch.Tensor]:
-        return [torch.zeros(self.n_super, dtype=torch.int32, device=dev)
-                for dev in self.mesh.devices]
-
-    def saturated(self, mark_w, iu_w):
-        return pt.saturated_tiles(mark_w, iu_w, self.n_super, self.sup_words)
-
-    def per_super(self, words):
+    def supertile_any(self, words):
         """1 for each of the shard's supertiles holding a set bit."""
-        return ((words != 0).reshape(self.n_super, self.sup_words).any(dim=1)
-                .to(torch.int32))
+        return pt.supertile_any(words, self.n_super, self.sup_words)
 
     def sweep(self, i, table, d, gate, layout, bucket):
         """One propagation sweep into shard ``i``: the gated kernel over
@@ -423,20 +421,85 @@ class _ShardOps:
                              include_self=True)
         return words | pack_hits_words(prop[: self.ss].reshape(-1, LANE) > 0)
 
-    def jump_hits(self, i, table, jump_j):
-        """Shard ``i``'s pointer-jump hits: its nodes whose jump parent is
-        active in ``table``, read through the replicated parent array."""
-        lo = i * self.ss
-        return pt.bits_at(table, jump_j[lo:lo + self.ss], self.n_pad)
+    def fixpoint(self, mark_w, prev_table, keep, active, layouts, buckets,
+                 *, mode=None, jump=None, gate=None):
+        """The sharded mark fixpoint: the sharded trace's loop, and the
+        sharded wake's closure and repair.  Each sweep grows every
+        shard's ``mark_w`` by its hits masked by ``keep``, until the
+        gathered table (``mark_w & active``, or the marks where
+        ``active`` is None) stops changing against ``prev_table``
+        (gathered; zeros when None).
 
-    def double(self, jump_j, trans):
-        """The pointer doublings of one sweep, run once per replica: every
-        device computes the same parents, so no collective is needed."""
-        for _ in range(pt.JUMP_STEPS):
-            j2 = jump_j[jump_j.long()]
-            can = pt.bits_at(trans, jump_j, self.n_pad) & (j2 < self.n_pad)
-            jump_j = torch.where(can, j2, jump_j)
-        return jump_j
+        Every sweep calls the gated kernel once per shard, with a zero
+        gate where nothing is forced or skipped.  ``gate`` (per shard)
+        forces the first sweep, and the loop then sweeps at least once
+        when any shard has a forced tile.  The jump step (jump and auto
+        modes, ``jump`` the replicated parents) runs once per replica on
+        its gathered table; each shard ORs in its slice of the hits.
+        Returns (mark_w, sweeps, host reads, dirty walk groups of each
+        sweep)."""
+        mode = self.mode if mode is None else mode
+        use_jump = mode in (pt.MODE_JUMP, pt.MODE_AUTO)
+        use_pull = mode in (pt.MODE_PULL, pt.MODE_AUTO)
+        shards = range(self.mesh.size)
+        words = self.ss // WORD_BITS
+
+        def tables(parts):
+            if active is not None:
+                parts = [m & a for m, a in zip(parts, active)]
+            return self.gather_table(parts)
+
+        zero = [torch.zeros(self.n_super, dtype=torch.int32, device=dev)
+                for dev in self.mesh.devices]
+        base = zero if gate is None else gate
+        if use_jump:
+            jump = list(jump)
+            trans = self.gather_table([k & a for k, a in zip(keep, active)])
+            keep_all = self.gather_table(keep)
+        table = tables(mark_w)
+        d = self.dirty(table, prev_table)
+        if gate is None:
+            n_dirty = self.n_dirty(d)
+            go = n_dirty > 0
+        else:
+            # One read for the replicated run-gate decision: the loop
+            # runs when the table moved or any shard has a forced tile
+            # (the reference's psum).
+            dev0 = self.mesh.devices[0]
+            n_dirty, *forced = torch.stack(  # readback: the run-gate decision
+                [d[0][self.n_chunks].to(torch.int64)]
+                + [g.sum().to(dev0) for g in gate]).tolist()
+            go = n_dirty > 0 or sum(forced) > 0
+        reads, dirty_hist = 1, []
+        while go:
+            # Both inputs to the pull decision, the dirty count (global
+            # table) and the saturation of LOCAL tiles, are replicated or
+            # shard-own state, so every shard agrees on the plan.
+            pull_on = use_pull and pt.pull_switch(mode, n_dirty,
+                                                  self.pull_cut)
+            if use_jump:
+                jump_w = [None] * len(jump)
+                for u in range(len(jump)):
+                    jump_w[u], jump[u] = pt.jump_sweep_words(
+                        table[u], jump[u], trans[u], keep_all[u], self.n_pad)
+            new = []
+            for i in shards:
+                u = self.replica[i]
+                g = (pt.pull_gate(base[i], mark_w[i], keep[i], self.n_super,
+                                  self.sup_words) if pull_on else base[i])
+                hit = self.sweep(i, table[u], d[u], g, layouts[i], buckets[i])
+                m = mark_w[i] | (hit & keep[i])
+                if use_jump:
+                    m = m | jump_w[u].reshape(-1)[i * words:(i + 1) * words]
+                new.append(m)
+            new_table = tables(new)
+            d = self.dirty(new_table, table)
+            mark_w, table, base = new, new_table, zero
+            dirty_hist.append(n_dirty)
+            n_dirty = self.n_dirty(d)
+            reads += 1
+            go = n_dirty > 0
+        return mark_w, len(dirty_hist), reads, dirty_hist
 
     def unpack(self, words):
         return pt.unpack_table(words, self.ss)
@@ -554,12 +617,11 @@ def make_sharded_cuda_trace(
     mesh = as_mesh(mesh)
     sub, group, mode, pull_density = _geometry(sub, group, mode, pull_density)
     use_jump = mode in (pt.MODE_JUMP, pt.MODE_AUTO)
-    use_pull = mode in (pt.MODE_PULL, pt.MODE_AUTO)
 
     def traced(flags, recv, bmeta1, bmeta2, row_pos, emeta, bsrc, bdst,
                *rest):
-        ops = _ShardOps(mesh, n_pad, shard_size, r_rows, s_rows, sub, group)
-        pull_cut = max(1, int(round(pull_density * ops.n_chunks)))
+        ops = _ShardOps(mesh, n_pad, shard_size, r_rows, s_rows, sub, group,
+                        mode, pull_density)
         flags = put_nodes(mesh, flags)
         recv = put_nodes(mesh, recv)
         layouts, buckets = _layout_operands(mesh, bmeta1, bmeta2, row_pos,
@@ -569,39 +631,8 @@ def make_sharded_cuda_trace(
         iu_w = [ops.pack_words(iu) for iu, _, _ in masks]
         nh_w = [ops.pack_words(~h) for _, h, _ in masks]
         mark_w = [ops.pack_words(iu & ~h & s) for iu, h, s in masks]
-        # replicated transparency table for the pointer doubling
-        trans = (ops.gather_table([a & b for a, b in zip(iu_w, nh_w)])
-                 if use_jump else None)
-        zero_gate = ops.zero_gates()
-
-        table = ops.gather_table([m & h for m, h in zip(mark_w, nh_w)])
-        d = ops.dirty(table)
-        n_dirty = ops.n_dirty(d)
-        host_syncs, sweeps, dirty_hist = 1, 0, []
-        while n_dirty > 0:
-            pull_on = use_pull and (mode != pt.MODE_AUTO
-                                    or n_dirty >= pull_cut)
-            new = []
-            for i in range(mesh.size):
-                u = ops.replica[i]
-                gate = (ops.saturated(mark_w[i], iu_w[i]) * pt.GATE_SKIP
-                        if pull_on else zero_gate[i])
-                hit = ops.sweep(i, table[u], d[u], gate, layouts[i],
-                                buckets[i])
-                m = mark_w[i] | (hit & iu_w[i])
-                if use_jump:
-                    jh = ops.jump_hits(i, table[u], jump[u])
-                    m = m | (ops.pack_words(jh) & iu_w[i])
-                new.append(m)
-            if use_jump:
-                jump = [ops.double(j, t) for j, t in zip(jump, trans)]
-            new_table = ops.gather_table([m & h for m, h in zip(new, nh_w)])
-            d = ops.dirty(new_table, table)
-            mark_w, table = new, new_table
-            dirty_hist.append(n_dirty)
-            sweeps += 1
-            n_dirty = ops.n_dirty(d)
-            host_syncs += 1
+        mark_w, sweeps, host_syncs, dirty_hist = ops.fixpoint(
+            mark_w, None, iu_w, nh_w, layouts, buckets, jump=jump)
         marks = [ops.unpack(m) for m in mark_w]
         if not with_stats:
             return marks
@@ -706,12 +737,11 @@ def make_sharded_decremental_wake(
     mesh = as_mesh(mesh)
     sub, group, mode, pull_density = _geometry(sub, group, mode, pull_density)
     use_jump = mode in (pt.MODE_JUMP, pt.MODE_AUTO)
-    use_pull = mode in (pt.MODE_PULL, pt.MODE_AUTO)
 
     def wake(flags, recv, del_w, fresh_w, p_mark, p_seed, p_halt, p_iu,
              p_active, bmeta1, bmeta2, row_pos, emeta, bsrc, bdst, *rest):
-        ops = _ShardOps(mesh, n_pad, shard_size, r_rows, s_rows, sub, group)
-        pull_cut = max(1, int(round(pull_density * ops.n_chunks)))
+        ops = _ShardOps(mesh, n_pad, shard_size, r_rows, s_rows, sub, group,
+                        mode, pull_density)
         flags, recv, del_w, fresh_w, p_mark, p_seed, p_halt, p_iu, p_active = (
             put_nodes(mesh, x) for x in (flags, recv, del_w, fresh_w, p_mark,
                                          p_seed, p_halt, p_iu, p_active))
@@ -724,85 +754,28 @@ def make_sharded_decremental_wake(
         halted_w = [ops.pack_words(h) for _, h, _ in masks]
         nh_w = [ops.pack_words(~h) for _, h, _ in masks]
         seed_w = [ops.pack_words(iu & ~h & s) for iu, h, s in masks]
-        zero_gate = ops.zero_gates()
-
-        def sweep_all(table, d, gates):
-            return [ops.sweep(i, table[ops.replica[i]], d[ops.replica[i]],
-                              gates[i], layouts[i], buckets[i])
-                    for i in shards]
 
         # --- 1. suspect seeds (shard-local) ------------------------- #
-        closure_w = [
+        suspects = [
             (~iu_w[i] | (halted_w[i] & ~p_halt[i]) | (p_seed[i] & ~seed_w[i])
              | del_w[i]) & p_mark[i]
             for i in shards
         ]
 
         # --- 2. closure: marks that depended on a suspect ----------- #
-        table = ops.gather_table(closure_w)
-        d = ops.dirty(table)
-        while ops.n_dirty(d) > 0:
-            hits = sweep_all(table, d, zero_gate)
-            closure_w = [c | (h & pm)
-                         for c, h, pm in zip(closure_w, hits, p_mark)]
-            new_table = ops.gather_table(closure_w)
-            d = ops.dirty(new_table, table)
-            table = new_table
-
+        closure_w, *_ = ops.fixpoint(suspects, None, p_mark, None, layouts,
+                                     buckets, mode=pt.MODE_PUSH)
         suspect_g = [
-            ops.per_super(closure_w[i]) | ops.per_super(fresh_w[i])
-            | ops.per_super(iu_w[i] & ~p_iu[i])
+            ops.supertile_any(closure_w[i]) | ops.supertile_any(fresh_w[i])
+            | ops.supertile_any(iu_w[i] & ~p_iu[i])
             for i in shards
         ]
 
         # --- 3. repair fixpoint ------------------------------------- #
-        mark_w = [(pm & ~c) | s for pm, c, s in zip(p_mark, closure_w, seed_w)]
-        table = ops.gather_table([m & h for m, h in zip(mark_w, nh_w)])
-        d = ops.dirty(table, ops.gather_table(p_active))
-        # One read for the replicated run-gate decision: the repair runs
-        # when the table moved or any shard has a suspect tile (the
-        # reference's psum).
-        dev0 = mesh.devices[0]
-        n_dirty, *suspects = torch.stack(  # readback: the run-gate decision
-            [d[0][ops.n_chunks].to(torch.int64)]
-            + [g.sum().to(dev0) for g in suspect_g]).tolist()
-        run = n_dirty > 0 or sum(suspects) > 0
-        trans = (ops.gather_table([a & b for a, b in zip(iu_w, nh_w)])
-                 if use_jump else None)
-        use_gate = True
-        while run:
-            # Gate composition as in the single-device wake: the repair
-            # forcing (GATE_FULL on suspect tiles, first sweep only)
-            # under the pull skip (GATE_SKIP on saturated tiles).  Both
-            # inputs to the pull decision — the dirty count (global
-            # table) and the saturation of LOCAL tiles — are replicated
-            # or shard-own state, so every shard agrees on the plan.
-            base = suspect_g if use_gate else zero_gate
-            pull_on = use_pull and (mode != pt.MODE_AUTO
-                                    or n_dirty >= pull_cut)
-            if pull_on:
-                gates = [torch.where(ops.saturated(m, iu) > 0,
-                                     torch.full_like(b, pt.GATE_SKIP), b)
-                         for m, iu, b in zip(mark_w, iu_w, base)]
-            else:
-                gates = base
-            hits = sweep_all(table, d, gates)
-            new = []
-            for i in shards:
-                m = mark_w[i] | (hits[i] & iu_w[i])
-                if use_jump:
-                    u = ops.replica[i]
-                    jh = ops.jump_hits(i, table[u], jump[u])
-                    m = m | (ops.pack_words(jh) & iu_w[i])
-                new.append(m)
-            if use_jump:
-                jump = [ops.double(j, t) for j, t in zip(jump, trans)]
-            new_table = ops.gather_table([m & h for m, h in zip(new, nh_w)])
-            d = ops.dirty(new_table, table)
-            mark_w, table = new, new_table
-            use_gate = False
-            n_dirty = ops.n_dirty(d)
-            run = n_dirty > 0
+        mark_w, *_ = ops.fixpoint(
+            [(pm & ~c) | s for pm, c, s in zip(p_mark, closure_w, seed_w)],
+            ops.gather_table(p_active), iu_w, nh_w, layouts, buckets,
+            jump=jump, gate=suspect_g)
 
         active_w = [m & h for m, h in zip(mark_w, nh_w)]
         marks = [ops.unpack(m) for m in mark_w]
