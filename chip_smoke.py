@@ -20,7 +20,9 @@ Phases, each reported on its own lines:
    int32 hit words.  Times each form on a full-walk sweep at the 10M
    layout with CUDA events, beside the byte bound of the work the new
    design does and the bound by the formula of the earlier f32 kernel
-   (one thread per slot).
+   (one thread per slot).  The jump step's kernel and the raw pair
+   tier's kernel (propagate_pairs_kernel: PAIRS_CAPACITY pairs of phase
+   4's graph on its 10M table) likewise, against their plain twins.
 4. Main path: a 10M-actor power-law graph (seed 0, half garbage) packed,
    moved to the card and traced through get_trace_fn in push, pull, jump
    and auto; the garbage set must equal the generator's expected set.
@@ -300,6 +302,8 @@ SPARSE_SWEEP = 8
 JUMP_SWEEPS = 7
 N_CHURN = 1_000_000
 MODES = ("push", "pull", "jump", "auto")
+#: the kernel forms a full trace launches (the jump in jump and auto)
+TRACE_FORMS = ("propagate", "propagate_gated", "jump")
 #: phase 6: (label, workload, its arguments, backend, trace-mode,
 #: pipelined, every trace checked against the oracle), run in this order.
 #: The oracle's host time slows a run's collector, so the runs whose
@@ -429,6 +433,12 @@ REPLACES = "uigc_tpu/ops/pallas_trace.py:983"
 #: the jump kernel replaces no Pallas kernel: the reference's jump step is
 #: a jnp expression (with bits_at and the pack after it)
 JUMP_REPLACES = "none (jnp: uigc_tpu/ops/pallas_trace.py:341 jump_sweep)"
+#: nor does the pair tier's: the reference scatters that tier with jnp
+PAIRS_REPLACES = ("none (jnp: uigc_tpu/ops/pallas_trace.py "
+                  "build_sweep_contribs, its xla tier)")
+#: slots of the pair tier timed at 10M: the live tier's largest capacity
+#: under the layout's default freeze threshold (2^14)
+PAIRS_CAPACITY = 1 << 14
 
 
 class SmokeFailure(Exception):
@@ -450,6 +460,25 @@ def cuda_ms(fn, reps):
     fn()
     times = []
     for _ in range(reps):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        fn()
+        b.record()
+        b.synchronize()
+        times.append(a.elapsed_time(b))
+    return float(np.median(times))
+
+
+def queued_ms(fn, reps):
+    """Median milliseconds of ``fn()``'s device work over ``reps`` runs: a
+    sleep kernel holds the stream while the host enqueues, so the events
+    bracket the launched work alone, not the host's launch path (which is
+    most of a launch-bound kernel's :func:`cuda_ms`)."""
+    fn()
+    times = []
+    for _ in range(reps):
+        torch.cuda._sleep(2_000_000)
         a = torch.cuda.Event(enable_timing=True)
         b = torch.cuda.Event(enable_timing=True)
         a.record()
@@ -763,6 +792,48 @@ def main_jump_timing(graph, jp_dev, r_rows, dev, errs):
         f"ms_by_sweep={[round(x, 4) for x in sweep_ms]} "
         f"plain_ms={plain_ms:.4f} bound_ms={row['bound_ms']:.4f} "
         f"share_of_bound={row['bound_ms'] / row['ms']:.3f}")
+    return row
+
+
+def main_pairs_timing(graph, table, dev, errs):
+    """The pair tier's kernel on phase 4's 10M table over PAIRS_CAPACITY
+    of its graph's pairs (seeded): words equal to the plain twin's, the
+    operands untouched, then the median of 20 launches (queued), the
+    twin's on the card, and the byte bound."""
+    n = graph["flags"].shape[0]
+    rng = np.random.default_rng(0)
+    pick = rng.choice(graph["edge_src"].size, PAIRS_CAPACITY, replace=False)
+    src = torch.from_numpy(graph["edge_src"][pick].astype(np.int32)).to(dev)
+    dst = torch.from_numpy(graph["edge_dst"][pick].astype(np.int32)).to(dev)
+    kept = (table.clone(), src.clone(), dst.clone())
+    got = prop.propagate_pairs(table, src, dst, torch.zeros_like(table), n)
+    torch.cuda.synchronize()
+    want = prop.propagate_pairs_torch(table, src, dst,
+                                      torch.zeros_like(table), n)
+    equal = torch.equal(got, want)
+    errs["pairs"] = max(errs["pairs"], float(not equal))
+    check(equal, f"pairs differs from its plain version at 10M: "
+          f"{int((got != want).sum())} words differ")
+    check(all(torch.equal(a, b) for a, b in zip((table, src, dst), kept)),
+          "the pairs kernel wrote into its operands")
+    out = torch.zeros_like(table)
+    ms = queued_ms(lambda: prop.propagate_pairs(table, src, dst, out, n), 20)
+    # the twin waits on its own host-to-device copy, so it cannot be
+    # queued: its time is the caller's, host launches included
+    plain_ms = cuda_ms(
+        lambda: prop.propagate_pairs_torch(table, src, dst, out, n), 20)
+    # src and dst read once (8 B a pair), a 32-byte sector of the table
+    # read and of the plane ORed a pair
+    work_bytes = PAIRS_CAPACITY * (8 + 32 + 32)
+    row = dict(name="pairs", route="cuda", source=KERNEL_SOURCE,
+               replaces=PAIRS_REPLACES, library_ms=None, ms=ms,
+               plain_ms=plain_ms, bound_ms=work_bytes / HBM_BYTES_S * 1e3,
+               bound_by="bytes")
+    say(f"[kernel] pairs @10M: n={n} words={table.numel()} "
+        f"capacity={PAIRS_CAPACITY} hit_words={int((want != 0).sum())} "
+        f"equal=True operands_unchanged=True bytes={work_bytes} "
+        f"ms={ms:.4f} plain_ms={plain_ms:.4f} bound_ms={row['bound_ms']:.6f} "
+        f"share_of_bound={row['bound_ms'] / ms:.3f}")
     return row
 
 
@@ -1974,9 +2045,9 @@ class NodeLaunches:
     """Kernel launches per node: ``Bookkeeper.on_message`` (a collector
     wake, or the undo-log fold a membership message triggers) names the
     node whose collector runs on the calling thread, and the wrappers of
-    both kernels (propagate and jump) add each launch to that node's
-    count (under a lock: the collectors of the three systems launch from
-    their own threads)."""
+    the three kernels (propagate, jump and pairs) add each launch to that
+    node's count (under a lock: the collectors of the three systems launch
+    from their own threads)."""
 
     def __init__(self):
         self.by_node = Counter()
@@ -1985,6 +2056,7 @@ class NodeLaunches:
         self._on_message = Bookkeeper.on_message
         self._propagate = prop.propagate_words_cuda
         self._jump = ct.jump_sweep_words_cuda
+        self._pairs = prop.propagate_pairs_cuda
 
     def __enter__(self):
         on_message, tls = self._on_message, self._tls
@@ -2009,12 +2081,14 @@ class NodeLaunches:
         prop.propagate_words_cuda = counting(self._propagate)
         # ops/cuda_trace.py calls the jump launcher by its imported name
         ct.jump_sweep_words_cuda = counting(self._jump)
+        prop.propagate_pairs_cuda = counting(self._pairs)
         return self
 
     def __exit__(self, *exc):
         Bookkeeper.on_message = self._on_message
         prop.propagate_words_cuda = self._propagate
         ct.jump_sweep_words_cuda = self._jump
+        prop.propagate_pairs_cuda = self._pairs
 
     def current(self):
         """The node whose collector runs on the calling thread, or None."""
@@ -3939,12 +4013,14 @@ def main():
     kernels = main_layout_timing(lay, table, dev, errs)
     kernels["jump"] = main_jump_timing(graph, jp_dev, lay["r_rows"], dev,
                                        errs)
+    kernels["pairs"] = main_pairs_timing(graph, table, dev, errs)
 
     prop.reset_launches()
     push_dirty, p50s = phase_main(graph, lay, jp_dev, dev, n_garbage)
     main_launches = dict(prop.launches)
     say(f"[main] launches={main_launches}")
-    check(all(v > 0 for v in main_launches.values()),
+    # the main path's one dense layout has no raw pair tier
+    check(all(main_launches[f] > 0 for f in TRACE_FORMS),
           f"a kernel form was never launched on the main path: {main_launches}")
     sparse_sweep_timing(graph, lay, dev, push_dirty, errs)
     phase_profile(graph, lay, jp_dev, dev)
@@ -3966,7 +4042,7 @@ def main():
 
     live_launches = phase_live(errs)
     say(f"[live] launches={live_launches}")
-    check(all(v > 0 for v in live_launches.values()),
+    check(all(live_launches[f] > 0 for f in TRACE_FORMS),
           f"a kernel form never launched in the live collector: "
           f"{live_launches}")
     elapsed("phase 6")
@@ -4030,8 +4106,7 @@ def main():
              "bound_by", "library_ms")
     say(card)  # the numbers above ran on this card, at this power limit
     say(json.dumps({"kernels": [{k: kernels[f][k] for k in order}
-                                for f in ("propagate", "propagate_gated",
-                                          "jump")]}))
+                                for f in TRACE_FORMS + ("pairs",)]}))
     say(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -334,7 +334,7 @@ def test_launch_counts_survive_concurrent_collectors():
         _race(16, lambda: [prop._count_launch("propagate_gated")
                            for _ in range(2000)])
         assert prop.launches == {"propagate": 0, "propagate_gated": 32000,
-                                 "jump": 0}
+                                 "jump": 0, "pairs": 0}
     finally:
         prop.launches.update(saved)
 

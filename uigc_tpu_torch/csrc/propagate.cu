@@ -101,6 +101,32 @@
 //   - A warp owns one hit word: __ballot_sync packs its 32 nodes' hits
 //     and lane 0 stores the word ANDed with iu_w.  No atomics, no
 //     zeroing pass: every word of the plane is written once.
+//
+// The third kernel, propagate_pairs_kernel, propagates a raw pair tier:
+// the layout's newest, unpacked insertions (ops/cuda_trace.py
+// xla_tier), launched once a sweep beside the packed tiers' launches.
+// It replaces no Pallas kernel: the JAX package propagates that tier
+// with a jnp scatter (uigc_tpu/ops/pallas_trace.py build_sweep_contribs),
+// which eager PyTorch ran as some 21 ops over the whole node plane a
+// sweep, one of them a host-to-device copy and a stream sync.  Contract:
+//   table         int32[n_words]   the sweep's source bits, node k = bit
+//                                  k%32 of word k/32; n <= 32 * n_words
+//   src, dst      int32[capacity]  one pair a slot; unused slots are sink
+//                                  pads, src = dst = n
+//   out           uint32[n_words]  the sweep's word plane, hits ORed in
+// For every slot i: if src[i] < n, dst[i] < n and table bit src[i] is
+// set, then out word dst[i] >> 5 |= 1 << (dst[i] & 31).  Unsigned
+// compares keep any id outside [0, n) from being read through: a sink
+// pad's word can lie one row past the table (n a multiple of 32,768).
+// OR is order-free, so the launch may come before or after the packed
+// tiers' launches of the same sweep.
+//
+// Bound: bytes.  8 B a slot of src and dst, and a 32-B sector each for
+// the table word it reads and the out word it ORs: at 16,384 slots about
+// 1.2 MB, 0.35 us at 3.35 TB/s, so one launch costs its launch.  Design:
+// one thread a slot, coalesced int32 loads of src and dst, a read-only
+// load of the table word, one atomicOr a hit straight into the plane (at
+// most capacity of them; the packed tiers' hub words are not in the way).
 
 #include <cstdint>
 #include <cuda_runtime.h>
@@ -269,6 +295,22 @@ __global__ void __launch_bounds__(kJumpThreads) jump_sweep_kernel(
   }
 }
 
+constexpr int kPairThreads = 256;
+
+__global__ void __launch_bounds__(kPairThreads) propagate_pairs_kernel(
+    const int32_t* __restrict__ table,
+    const int32_t* __restrict__ src,
+    const int32_t* __restrict__ dst,
+    unsigned int* __restrict__ out,
+    uint32_t n, int64_t capacity) {
+  const int64_t i = static_cast<int64_t>(blockIdx.x) * kPairThreads + threadIdx.x;
+  if (i >= capacity) return;
+  const uint32_t s = static_cast<uint32_t>(__ldg(src + i));
+  const uint32_t d = static_cast<uint32_t>(__ldg(dst + i));
+  if (s >= n || d >= n || !bit_at(table, s)) return;
+  atomicOr(out + (d >> 5), 1u << (d & 31u));
+}
+
 }  // namespace
 
 // Plain C interface (bound with ctypes).  Launches on `stream`, does not
@@ -318,5 +360,20 @@ extern "C" int uigc_jump_sweep_words(
                       static_cast<cudaStream_t>(stream)>>>(
       table, jump_j, trans_w, iu_w, hit_words, new_j,
       static_cast<uint32_t>(n), n_words);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// A raw pair tier's share of a sweep, ORed into `out` (contract above).
+// Same conventions as uigc_propagate_words: launches on `stream`, does
+// not synchronise, allocates nothing, returns cudaGetLastError().
+extern "C" int uigc_propagate_pairs(
+    const int32_t* table, const int32_t* src, const int32_t* dst,
+    unsigned int* out, int32_t n, int64_t capacity, void* stream) {
+  if (n < 0 || capacity < 0) return static_cast<int>(cudaErrorInvalidValue);
+  if (capacity == 0) return 0;
+  const int64_t grid = (capacity + kPairThreads - 1) / kPairThreads;
+  propagate_pairs_kernel<<<static_cast<unsigned>(grid), kPairThreads, 0,
+                           static_cast<cudaStream_t>(stream)>>>(
+      table, src, dst, out, static_cast<uint32_t>(n), capacity);
   return static_cast<int>(cudaGetLastError());
 }

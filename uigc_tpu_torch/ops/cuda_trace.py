@@ -15,9 +15,10 @@ What it keeps, and how:
 - **The sweep glue, as torch ops** (``bits_at``, ``jump_sweep``,
   ``saturated_tiles``, the dirty lists, the word pack/unpack and
   ``build_sweep_contribs`` with its dense, compact and xla tiers), but
-  for the jump step on the card: :func:`jump_sweep_words` launches a
-  hand-written kernel there, and keeps ``jump_sweep`` and ``pack_bools``
-  as its plain twin.
+  for the jump step and the xla tier on the card: :func:`jump_sweep_words`
+  and ``ops/propagate.py`` ``propagate_pairs`` launch hand-written
+  kernels there, and keep ``jump_sweep`` with ``pack_bools``, and
+  ``propagate_pairs_torch``, as their plain twins.
 - **The fixpoint** (``_build_trace_fn_multi``) in all four modes (push,
   pull, jump, auto).  The reference's loop is one device program
   (``jax.lax.while_loop``); here the loop (:class:`SweepLoop`, which
@@ -32,7 +33,8 @@ What it keeps, and how:
   tensors; :func:`graph_to_device` does the same for a graph dict.
 
 One sweep is one :func:`ops.propagate.propagate_words` per packed
-layout, all ORing into one word plane: the hand-written Hopper kernel on
+layout and one :func:`ops.propagate.propagate_pairs` per xla tier, all
+ORing into one word plane: the hand-written Hopper kernel on
 CUDA tensors, its plain PyTorch twin on CPU tensors.  The reference's
 sweep sums f32 contribution planes, thresholds and packs them; the
 port's kernel writes the packed words itself, so no contribution plane,
@@ -65,9 +67,11 @@ from .propagate import (  # the kernel ABI, named as the reference names it
     ROWS,
     SPAN_BITS,
     WORD_BITS,
+    bits_at,
     check_jump_operands,
     jump_sweep_words_cuda,
     pack_hits_words,
+    propagate_pairs,
     propagate_words,
 )
 from .slotmap import log_columns
@@ -206,15 +210,6 @@ def jump_parents_from_graph(
 # --------------------------------------------------------------------- #
 
 
-def bits_at(table, ids, n):
-    """Gather per-node bits from a packed word table for an integer id
-    vector; ids >= n (the sentinel and any padding) read as 0."""
-    flat = table.reshape(-1)
-    ids = ids.long()
-    word = torch.clamp(ids >> 5, max=flat.numel() - 1)
-    return (((flat[word] >> (ids & 31)) & 1) > 0) & (ids < n)
-
-
 def jump_sweep(table, jump_j, trans_w, n, steps: int = JUMP_STEPS):
     """One pointer-jump propagation step + ``steps`` pointer doublings
     (reference: pallas_trace.jump_sweep, whose docstring argues the
@@ -310,14 +305,12 @@ def build_sweep_contribs(specs, n, n_super, s_rows):
     form, or None for the plain form.  Every layout ORs its hits into one
     zeroed plane, so the union of the layouts' pairs propagates: the
     packed layouts through the kernel (a compact one maps its tiles to
-    global supertiles itself), the xla tier through a scatter-max whose
-    hits are packed and ORed in.  Keeping this loop in one place is what
-    makes the two fixpoints propagate identically per sweep."""
-    t_rows = n_super * s_rows
-    n_pad_nodes = t_rows * LANE
+    global supertiles itself), the xla tier through the pair kernel
+    (``ops/propagate.py`` ``propagate_pairs``), one launch each.  Keeping
+    this loop in one place is what makes the two fixpoints propagate
+    identically per sweep."""
 
     def sweep(table, d, layout_args, gate=None):
-        dev = table.device
         words = torch.zeros_like(table)
         pos = 0
         for spec in specs:
@@ -325,20 +318,7 @@ def build_sweep_contribs(specs, n, n_super, s_rows):
                 psrc, pdst = layout_args[pos:pos + 2]
                 pos += 2
                 with events.span("uigc.fixpoint.propagate", form="xla"):
-                    # Source-active bits straight from the packed table;
-                    # sink pads (src = n) read as 0 (bits_at clamps the
-                    # word index, which can be one row past the table for
-                    # them).
-                    src_active = bits_at(table, psrc, n).to(torch.int32)
-                    prop = torch.zeros(n_pad_nodes + 1, dtype=torch.int32,
-                                       device=dev)
-                    prop.scatter_reduce_(0, pdst.long(), src_active, "amax",
-                                         include_self=True)
-                    hits = pack_hits_words(
-                        prop[:n_pad_nodes].reshape(t_rows, LANE) > 0
-                    )
-                    flat = words.view(-1)
-                    flat[: hits.numel()] |= hits
+                    propagate_pairs(table, psrc, pdst, words, n)
                 continue
             if spec[0] == "compact":
                 bmeta1, bmeta2, row_pos, emeta, super_ids = layout_args[
@@ -723,10 +703,11 @@ def device_args(prep: Dict[str, np.ndarray]) -> tuple:
 
 def xla_tier(psrc, pdst, n: int, capacity: int) -> Dict[str, np.ndarray]:
     """A propagation tier held as raw pair arrays, padded to a static
-    ``capacity`` with inert sink pairs (src=dst=n).  Propagated by an
-    torch scatter-max instead of the propagate kernel: O(capacity) per
-    fixpoint iteration, but zero pack cost while the capacity is
-    stable — the landing pad for the newest churn."""
+    ``capacity`` with inert sink pairs (src=dst=n).  Propagated by the
+    pair kernel (``ops/propagate.py`` ``propagate_pairs``) instead of the
+    packed layouts' kernel: O(capacity) per fixpoint iteration, but zero
+    pack cost while the capacity is stable — the landing pad for the
+    newest churn."""
     m = len(psrc)
     assert m <= capacity
     src = np.full(capacity, n, dtype=np.int32)
@@ -1008,8 +989,8 @@ def _build_trace_fn_multi(
       ("compact", n_blocks, out_tiles, sub, group) — only touched
         supertiles, mapped to global supertiles by the layout's
         ``super_ids`` operand
-      ("xla", capacity)                 — raw pair arrays propagated by a
-        scatter-max; the landing tier for the newest churn
+      ("xla", capacity)                 — raw pair arrays propagated by
+        the pair kernel; the landing tier for the newest churn
     Packed layouts sharing a trace must share (sub, group): the walk
     geometry fixes the dirty-list granularity.
 

@@ -31,7 +31,10 @@ tensor whose kernel cannot be built or launched raises.
 The same source holds the jump step's kernel (``jump_sweep_kernel``),
 launched by :func:`jump_sweep_words_cuda`, one launch a sweep of the
 jump and auto modes.  Its plain twin is ``ops/cuda_trace.py``
-``jump_sweep`` and ``pack_bools``.
+``jump_sweep`` and ``pack_bools``.  It also holds the raw pair tier's
+kernel (``propagate_pairs_kernel``), launched by :func:`propagate_pairs`
+once a sweep of a trace whose layouts include an ``xla`` tier; its plain
+twin is :func:`propagate_pairs_torch`.
 
 The kernels are built at first use by ``nvcc`` into ``csrc/build/`` (a
 shared library with a plain C interface, bound with ``ctypes``), named by
@@ -68,8 +71,9 @@ GATE_SKIP = 2  # walk nothing
 
 #: launches of each kernel (form) since the last reset_launches(); the
 #: wrapper adds one where it launches, and nowhere else.  ``jump`` is the
-#: jump step's kernel, one launch a sweep of the jump and auto modes.
-launches = {"propagate": 0, "propagate_gated": 0, "jump": 0}
+#: jump step's kernel, one launch a sweep of the jump and auto modes;
+#: ``pairs`` the raw pair tier's, one launch a sweep that has the tier.
+launches = {"propagate": 0, "propagate_gated": 0, "jump": 0, "pairs": 0}
 #: guards ``launches``: several collectors (one per system of a
 #: multi-node fabric) launch from their own threads, and ``+= 1`` on a
 #: dict entry is a read, an add and a store
@@ -174,6 +178,12 @@ def _bind(path: Path) -> ctypes.CDLL:
                                  ctypes.c_void_p]
     )
     jump.restype = ctypes.c_int
+    pairs = lib.uigc_propagate_pairs
+    pairs.argtypes = (
+        [ctypes.c_void_p] * 4 + [ctypes.c_int32, ctypes.c_int64,
+                                 ctypes.c_void_p]
+    )
+    pairs.restype = ctypes.c_int
     return lib
 
 
@@ -210,6 +220,15 @@ def pack_hits_words(hits2d):
     h3 = hits2d.to(torch.int32).reshape(t, LANE // WORD_BITS, WORD_BITS)
     w = (h3 * _bit_weights(hits2d.device)).sum(dim=2, dtype=torch.int32)
     return w.reshape(-1)
+
+
+def bits_at(table, ids, n):
+    """Gather per-node bits from a packed word table for an integer id
+    vector; ids >= n (the sentinel and any padding) read as 0."""
+    flat = table.reshape(-1)
+    ids = ids.long()
+    word = torch.clamp(ids >> 5, max=flat.numel() - 1)
+    return (((flat[word] >> (ids & 31)) & 1) > 0) & (ids < n)
 
 
 # --------------------------------------------------------------------- #
@@ -446,3 +465,85 @@ def jump_sweep_words_cuda(table, jump_j, trans_w, iu_w, n):
         raise RuntimeError(f"jump kernel launch failed: CUDA error {err}")
     _count_launch("jump")
     return hit_words, new_j
+
+
+# --------------------------------------------------------------------- #
+# The raw pair tier's kernel
+# --------------------------------------------------------------------- #
+
+
+def check_pairs_operands(table, src, dst, out, n):
+    """Checks of the raw pair tier's contract (``csrc/propagate.cu``
+    ``propagate_pairs_kernel``), host attribute reads only: int32,
+    contiguous and on one device; a (r_rows, LANE) table that holds n
+    nodes, an ``out`` plane of its shape, and one flat (src, dst) pair a
+    slot."""
+    dev = table.device
+    if table.dim() != 2 or table.shape[1] != LANE:
+        raise ValueError(f"table must be (r_rows, {LANE}), got {tuple(table.shape)}")
+    if not 0 <= n <= table.numel() * WORD_BITS or n >= (1 << 31) - 1:
+        raise ValueError(f"n {n} does not fit the {table.numel()}-word table "
+                         f"and int32 ids")
+    _check("table", table, dev)
+    _check("out", out, dev)
+    if out.shape != table.shape:
+        raise ValueError(f"out is {tuple(out.shape)}, the table "
+                         f"{tuple(table.shape)}")
+    _check("src", src, dev)
+    _check("dst", dst, dev, src.numel())
+    if src.dim() != 1 or dst.dim() != 1:
+        raise ValueError(f"src and dst must be flat, got {tuple(src.shape)} "
+                         f"and {tuple(dst.shape)}")
+
+
+def propagate_pairs_torch(table, src, dst, out, n):
+    """The raw pair tier's share of a sweep in plain PyTorch, the kernel's
+    twin: ORs into ``out`` the bit of every ``dst`` whose ``src`` bit is
+    set in ``table``, and returns ``out``.  Ids lie in [0, n], n being
+    the sink of the tier's pads: a source >= n reads as 0, and a real
+    pair's destination is below n."""
+    check_pairs_operands(table, src, dst, out, n)
+    n_pad_nodes = out.numel() * WORD_BITS
+    # Source-active bits straight from the packed table; sink pads (src =
+    # n) read as 0 (bits_at clamps the word index, which can be one row
+    # past the table for them).
+    src_active = bits_at(table, src, n).to(torch.int32)
+    prop = torch.zeros(n_pad_nodes + 1, dtype=torch.int32, device=table.device)
+    prop.scatter_reduce_(0, dst.long(), src_active, "amax", include_self=True)
+    hits = pack_hits_words(prop[:n_pad_nodes].reshape(-1, LANE) > 0)
+    flat_out = out.view(-1)
+    flat_out |= hits
+    return out
+
+
+def propagate_pairs_cuda(table, src, dst, out, n):
+    """The raw pair tier's sm_90a kernel, launched on the current stream:
+    ORs the tier's hits into ``out`` and returns it.  Raises when an
+    operand is not what the kernel takes, when the build fails, or when
+    the launch is refused."""
+    dev = table.device
+    if dev.type != "cuda":
+        raise ValueError(f"propagate_pairs_cuda needs CUDA tensors, got {dev}")
+    check_pairs_operands(table, src, dst, out, n)
+    fn = load_library().uigc_propagate_pairs
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    with torch.cuda.device(dev):
+        err = fn(table.data_ptr(), src.data_ptr(), dst.data_ptr(),
+                 out.data_ptr(), n, src.numel(), stream)
+    if err != 0:
+        raise RuntimeError(f"pairs kernel launch failed: CUDA error {err}")
+    _count_launch("pairs")
+    return out
+
+
+def propagate_pairs(table, src, dst, out, n):
+    """A raw pair tier's share of a propagation sweep, ORed into the word
+    plane ``out``, shaped like ``table`` (the caller zeroes it once per
+    sweep).  CPU tensors take :func:`propagate_pairs_torch`; CUDA tensors
+    take the kernel, with no fallback."""
+    kind = table.device.type
+    if kind == "cpu":
+        return propagate_pairs_torch(table, src, dst, out, n)
+    if kind == "cuda":
+        return propagate_pairs_cuda(table, src, dst, out, n)
+    raise ValueError(f"no pairs kernel for device type {kind!r}")
